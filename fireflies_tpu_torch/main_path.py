@@ -1,0 +1,77 @@
+"""The main path: the pattern-optimization inner loop on the vocalfold scene.
+
+The workload of the reference's benchmark (`bench.py::measure`): build
+`vocalfold(resolution=24, n_anim_frames=4)` (1440 faces), randomize one
+variant per seed, attach the analytic beam-splat projector of a 12x12
+laser pattern, assemble, path-trace every variant (512x512, spp 1,
+2 bounces, static geometry), and differentiate the mean image with respect
+to the (144, 3) beam directions.
+
+    bridge, randomize, beams = build(device)
+    img = render_batch(bridge, randomize, beams, seeds, cfg)      # (B, H, W, 3)
+    loss, grad = pattern_step(bridge, randomize, beams, seeds, cfg)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fireflies_tpu_torch.assets import scenes
+from fireflies_tpu_torch.projection import laser
+from fireflies_tpu_torch.render import RenderConfig, SceneBridge, render_rgb
+
+Tensor = torch.Tensor
+
+PROJECTOR_FOV = 30.0
+BEAM_SIGMA = 10.0
+BEAM_TEXTURE = (256, 256)
+
+
+def bench_config(size: int = 512, spp: int = 1, bounces: int = 2) -> RenderConfig:
+    return RenderConfig(width=size, height=size, spp=spp, max_bounces=bounces,
+                        static_geometry=True)
+
+
+def build(device="cpu", resolution: int = 24):
+    """(bridge, randomize, beams): the vocalfold scene, its randomize
+    function on `device`, and the (144, 3) uniform beam pattern."""
+    scene, kw = scenes.vocalfold(resolution=resolution, n_anim_frames=4)
+    bridge = SceneBridge(scene, **kw)
+    randomize = scene.compile(device=device)
+    beams = laser.generate_uniform_rays(0.0275, 12, 12, device=device)
+    return bridge, randomize, beams
+
+
+def generators(seeds, device) -> list[torch.Generator]:
+    """One torch.Generator per variant, seeded from an int."""
+    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+
+
+def _variant_params(randomize, beam_params: dict, gen: torch.Generator) -> dict:
+    params = dict(randomize(gen, 0))
+    params.update(beam_params)
+    return params
+
+
+def render_batch(bridge: SceneBridge, randomize, beams: Tensor, seeds,
+                 cfg: RenderConfig) -> Tensor:
+    """Render one randomized variant per seed in one batch; (B, H, W, 3)."""
+    gens = generators(seeds, beams.device)
+    beam_params = laser.rays_to_beam_params(beams, PROJECTOR_FOV, sigma=BEAM_SIGMA,
+                                            texture_size=BEAM_TEXTURE)
+    scene = bridge.assemble([_variant_params(randomize, beam_params, g) for g in gens])
+    return render_rgb(scene, gens, cfg)
+
+
+def pattern_step(bridge: SceneBridge, randomize, beams: Tensor, seeds,
+                 cfg: RenderConfig) -> tuple[Tensor, Tensor]:
+    """Loss = mean over variants of the mean image, and its gradient with
+    respect to the (K, 3) beam directions.  Backward runs per variant and
+    accumulates, so memory holds one variant's graph at a time."""
+    beams = beams.detach().requires_grad_(True)
+    loss = torch.zeros((), device=beams.device)
+    for seed in seeds:
+        loss_i = render_batch(bridge, randomize, beams, [seed], cfg).mean() / len(seeds)
+        loss_i.backward()
+        loss = loss + loss_i.detach()
+    return loss, beams.grad

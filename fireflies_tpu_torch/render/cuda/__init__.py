@@ -1,0 +1,12 @@
+"""Hand-written CUDA intersection kernels with their plain PyTorch versions
+(counterpart of fireflies_tpu/render/pallas)."""
+
+from fireflies_tpu_torch.render.cuda import intersect_culled, intersect_kernel
+
+# Every kernel the main path launches, by the name chip_smoke.py reports.
+KERNELS = {
+    "intersect_shared_culled": intersect_culled.KERNEL,
+    "intersect_general": intersect_kernel.KERNEL,
+}
+
+__all__ = ["KERNELS", "intersect_culled", "intersect_kernel"]

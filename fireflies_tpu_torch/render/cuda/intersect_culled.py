@@ -1,0 +1,206 @@
+"""Tile-culled shared-origin intersection: the CUDA kernel's wrapper, its
+plain PyTorch version, and the per-tile cluster lists.
+
+Counterpart of fireflies_tpu/render/pallas/intersect_culled.py
+(`intersect_pallas_shared_culled`); the kernel is
+`csrc/intersect_shared_culled.cu`.  Camera rays and shadow rays reversed
+to start at a light share one origin, so triangles are pre-mapped by the
+Woop transform (`pack_triangles_woop`) and each 2048-ray tile walks only
+the clusters its direction box can reach, front to back
+(`tile_cluster_lists`, plain tensor ops as in the reference).
+
+Layouts, with a leading variant axis B:
+  dirs   (B, 3, R/128, 128) f32,  tmax (B, R/128, 128) f32 (tmax < 0 = dead)
+  woop   (B, 12, Tpad) f32,       boxes (B, 6, NC) f32, origin-shifted
+  lists  (B, T, NC) int32,        counts (B, T, 1) int32
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from fireflies_tpu_torch._build import Kernel, check_cuda, ptr, stream_of
+from fireflies_tpu_torch.render.cuda.intersect_kernel import (
+    _BIG,
+    _EPS_BARY,
+    FACE_BLOCK,
+    LANES,
+    RAY_BLOCK,
+    RAY_TILE,
+    _carry_min,
+    pack_dirs,
+    pack_triangles_woop,
+)
+
+Tensor = torch.Tensor
+
+CHUNK = 16  # faces per cluster on the shared-origin route
+_INF = 3.0e38
+
+KERNEL = Kernel("ff_intersect_shared_culled", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dirs tmax woop boxes
+    ctypes.c_void_p, ctypes.c_void_p,  # lists counts
+    ctypes.c_void_p, ctypes.c_void_p,  # out_t out_prim
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R Tpad NC chunk
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # t_min any_hit stream
+])
+
+
+def _safe_div(a: Tensor, b: Tensor) -> Tensor:
+    return a / torch.where(b.abs() < 1e-30, torch.where(b < 0, -1e-30, 1e-30), b)
+
+
+def _interval_slab_hit(dl, dh, bl, bh, t_min: float) -> Tensor:
+    """Conservative interval slab test over axis 1 (xyz): does any t > t_min
+    with d in [dl, dh] put t*d inside [bl, bh] on all three axes?"""
+    shape = torch.broadcast_shapes(dl.shape, bl.shape)
+    lo = torch.full(shape, t_min, dtype=torch.float32, device=dl.device)
+    hi = torch.full(shape, _INF, dtype=torch.float32, device=dl.device)
+    lo = torch.where(dl < 0, torch.maximum(lo, _safe_div(bh, dl)), lo)
+    hi = torch.where(dl > 0, torch.minimum(hi, _safe_div(bh, dl)), hi)
+    empty = (dl == 0) & (bh < 0)
+    lo = torch.where(dh > 0, torch.maximum(lo, _safe_div(bl, dh)), lo)
+    hi = torch.where(dh < 0, torch.minimum(hi, _safe_div(bl, dh)), hi)
+    empty = empty | ((dh == 0) & (bl > 0))
+    return (lo.amax(dim=1) <= hi.amin(dim=1)) & ~empty.any(dim=1)
+
+
+def tile_cluster_lists(dirs_soa: Tensor, boxes: Tensor, t_min: float = 0.0,
+                       tmax_tiles: Tensor | None = None):
+    """Conservative per-tile cluster culling (shared origin at 0).
+
+    For tile i of variant b, lists[b, i, :counts[b, i, 0]] are the clusters
+    some direction in the tile's direction box may hit, sorted front to
+    back by centroid distance.  With `tmax_tiles`, dead rays leave the box
+    and all-dead tiles get count 0.  Returns (lists (B, T, NC) int32,
+    counts (B, T, 1) int32).
+    """
+    b = dirs_soa.shape[0]
+    t = dirs_soa.shape[2] * LANES // RAY_TILE
+    d_tiles = dirs_soa.reshape(b, 3, t, RAY_TILE)
+    if tmax_tiles is not None:
+        alive = (tmax_tiles >= 0.0).reshape(b, 1, t, RAY_TILE)
+        dl = torch.where(alive, d_tiles, _INF).amin(dim=-1)
+        dh = torch.where(alive, d_tiles, -_INF).amax(dim=-1)
+        galive = alive.any(dim=-1)[:, 0]  # (B, T)
+    else:
+        dl = d_tiles.amin(dim=-1)
+        dh = d_tiles.amax(dim=-1)
+        galive = None
+    hit = _interval_slab_hit(dl[..., None], dh[..., None], boxes[:, 0:3, None, :],
+                             boxes[:, 3:6, None, :], t_min)  # (B, T, NC)
+    if galive is not None:
+        hit = hit & galive[..., None]
+    center = 0.5 * (boxes[:, 0:3] + boxes[:, 3:6])
+    dist2 = torch.sum(center * center, dim=1)  # (B, NC)
+    sort_key = torch.where(hit, dist2[:, None, :], _INF)
+    lists = torch.argsort(sort_key, dim=-1, stable=True).to(torch.int32)
+    counts = hit.sum(dim=-1, dtype=torch.int32)[..., None]
+    return lists.contiguous(), counts.contiguous()
+
+
+def listed_mask(lists: Tensor, counts: Tensor) -> Tensor:
+    """(B, T, NC) bool: cluster c is on tile t's list."""
+    nc = lists.shape[-1]
+    pos = torch.arange(nc, device=lists.device)
+    mask = torch.zeros(lists.shape, dtype=torch.bool, device=lists.device)
+    return mask.scatter_(-1, lists.long(), pos < counts)
+
+
+def intersect_culled_packed_plain(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor,
+                                  boxes: Tensor, lists: Tensor, counts: Tensor,
+                                  t_min: float, any_hit: bool = False, chunk: int = CHUNK):
+    """Plain PyTorch version of the shared-origin kernel: the division-free
+    Woop test of `csrc/intersect_shared_culled.cu` as a blocked broadcast
+    over (rays, faces), restricted to the clusters on each ray's tile list;
+    closest hit by argmin (any-hit returns it too).  Returns (t, prim)
+    shaped like `tmax_tiles`; prim = -1 on a miss."""
+    del any_hit, boxes  # the AABB skip is an optimisation, not semantics
+    b = dirs_soa.shape[0]
+    r = tmax_tiles[0].numel()
+    dirs = dirs_soa.reshape(b, 3, r)
+    tmax = tmax_tiles.reshape(b, r)
+    listed = listed_mask(lists, counts)
+    out_t = torch.empty(b, r, dtype=torch.float32, device=dirs.device)
+    out_p = torch.empty(b, r, dtype=torch.int32, device=dirs.device)
+    n_face = woop.shape[2]
+    face_cluster = torch.arange(n_face, device=dirs.device) // chunk
+    for bi in range(b):
+        for r0 in range(0, r, RAY_BLOCK):
+            dx, dy, dz = (dirs[bi, k, r0:r0 + RAY_BLOCK, None] for k in range(3))
+            tm = tmax[bi, r0:r0 + RAY_BLOCK, None]
+            tile = torch.arange(r0, r0 + tm.shape[0], device=dirs.device) // RAY_TILE
+            best_t = torch.full_like(tm[:, 0], _BIG)
+            best_p = torch.full(best_t.shape, -1, dtype=torch.int32, device=best_t.device)
+            for f0 in range(0, n_face, FACE_BLOCK):
+                (w00, w01, w02, w10, w11, w12, w20, w21, w22, opx, opy, opz) = (
+                    woop[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(12))
+                on_list = listed[bi][tile[:, None], face_cluster[None, f0:f0 + FACE_BLOCK]]
+                dpx = w00 * dx + w01 * dy + w02 * dz
+                dpy = w10 * dx + w11 * dy + w12 * dz
+                dpz = w20 * dx + w21 * dy + w22 * dz
+                sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
+                dn = dpz * sgn
+                tn = -opz * sgn
+                u_n = opx * dn + tn * dpx
+                v_n = opy * dn + tn * dpy
+                ok = (on_list & (dn > 1e-12) & (u_n >= -_EPS_BARY * dn)
+                      & (v_n >= -_EPS_BARY * dn) & (u_n + v_n <= (1.0 + _EPS_BARY) * dn)
+                      & (tn > t_min * dn) & (tn < tm * dn))
+                t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
+                best_t, best_p = _carry_min(t, f0, best_t, best_p)
+            out_t[bi, r0:r0 + RAY_BLOCK] = torch.where(best_p >= 0, best_t, 0.0)
+            out_p[bi, r0:r0 + RAY_BLOCK] = best_p
+    return out_t.reshape(tmax_tiles.shape), out_p.reshape(tmax_tiles.shape)
+
+
+def intersect_culled_packed(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, boxes: Tensor,
+                            t_min: float, any_hit: bool = False, chunk: int = CHUNK,
+                            lists: Tensor | None = None, counts: Tensor | None = None):
+    """Shared-origin closest/any-hit over packed inputs: builds the tile
+    lists unless given, then CPU tensors take the plain version and CUDA
+    tensors launch `csrc/intersect_shared_culled.cu` (one thread per ray,
+    each block on its 2048-ray tile's list, grid (R/256, B)) or raise."""
+    if lists is None or counts is None:
+        lists, counts = tile_cluster_lists(dirs_soa, boxes, t_min=t_min, tmax_tiles=tmax_tiles)
+    if dirs_soa.device.type == "cpu":
+        return intersect_culled_packed_plain(dirs_soa, tmax_tiles, woop, boxes, lists, counts,
+                                             t_min, any_hit, chunk)
+    dev = dirs_soa.device
+    b, _, rows, _ = dirs_soa.shape
+    r = rows * LANES
+    n_face, nc = woop.shape[2], boxes.shape[2]
+    if r % RAY_TILE or n_face != nc * chunk:
+        raise ValueError(f"bad packing: R={r}, Tpad={n_face}, NC={nc}, chunk={chunk}")
+    n_tiles = r // RAY_TILE
+    check_cuda("dirs_soa", dirs_soa, torch.float32, (b, 3, rows, LANES), dev)
+    check_cuda("tmax_tiles", tmax_tiles, torch.float32, (b, rows, LANES), dev)
+    check_cuda("woop", woop, torch.float32, (b, 12, n_face), dev)
+    check_cuda("boxes", boxes, torch.float32, (b, 6, nc), dev)
+    check_cuda("lists", lists, torch.int32, (b, n_tiles, nc), dev)
+    check_cuda("counts", counts, torch.int32, (b, n_tiles, 1), dev)
+    KERNEL.record(dirs_soa=dirs_soa, tmax_tiles=tmax_tiles, woop=woop, boxes=boxes, lists=lists,
+                  counts=counts, t_min=t_min, any_hit=any_hit, chunk=chunk)
+    out_t = torch.empty(b, rows, LANES, dtype=torch.float32, device=dev)
+    out_p = torch.empty(b, rows, LANES, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        KERNEL.launch(ptr(dirs_soa), ptr(tmax_tiles), ptr(woop), ptr(boxes), ptr(lists),
+                      ptr(counts), ptr(out_t), ptr(out_p), b, r, n_face, nc, chunk,
+                      float(t_min), int(any_hit), stream_of(dev))
+    return out_t, out_p
+
+
+def intersect_cuda_shared_culled(origin: Tensor, d: Tensor, vertices: Tensor, faces: Tensor,
+                                 t_min: float = 1e-4, t_max=1e30, any_hit: bool = False,
+                                 chunk: int = CHUNK):
+    """Tile-culled shared-origin closest/any-hit; counterpart of
+    `intersect_pallas_shared_culled`.  origin (B, 3), d (B, N, 3) in
+    tile-major order (culling bites only then; correctness does not depend
+    on it).  Returns (t (B, N), prim (B, N) int32)."""
+    woop, boxes = pack_triangles_woop(vertices.detach(), faces, origin.detach(), chunk=chunk)
+    dirs_soa, tmax_tiles, n = pack_dirs(d.detach(), torch.as_tensor(t_max).detach())
+    t, prim = intersect_culled_packed(dirs_soa, tmax_tiles, woop, boxes, t_min, any_hit, chunk)
+    b = d.shape[0]
+    return t.reshape(b, -1)[:, :n], prim.reshape(b, -1)[:, :n]

@@ -1,0 +1,277 @@
+"""General-origin ray/triangle intersection: the CUDA kernel's wrapper, its
+plain PyTorch version, and the packing helpers.
+
+Counterpart of fireflies_tpu/render/pallas/intersect_kernel.py
+(`intersect_pallas`); the kernel itself is `csrc/intersect_general.cu`.
+Layouts follow the reference with a leading variant axis B:
+
+  rays  (B, 6, R/128, 128) f32  origin xyz rows 0-2, direction rows 3-5
+  tmax  (B, R/128, 128) f32     tmax < 0 marks a dead ray (retired/padding)
+  tri   (B, 9, Tpad) f32        v0, e1, e2 of Morton-ordered faces
+  boxes (B, 6, NC) f32          per-cluster AABB (min xyz, max xyz)
+
+R is padded to whole 2048-ray tiles with d = (0, 0, 1), tmax = -1; Tpad to
+whole clusters of `chunk` faces with zero (never-hit) triangles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from fireflies_tpu_torch._build import Kernel, check_cuda, ptr, stream_of
+
+Tensor = torch.Tensor
+
+RAY_TILE = 2048
+LANES = 128
+SUBLANES = RAY_TILE // LANES
+CHUNK = 64  # faces per AABB cluster
+
+_BIG = 3.0e38
+_EPS_DET = 1e-9
+_EPS_BARY = 1e-6
+
+# The plain versions broadcast over (rays, faces) blocks of this size, which
+# bounds their temporaries to a few hundred MB at the main path's shapes.
+RAY_BLOCK = 16384
+FACE_BLOCK = 256
+
+KERNEL = Kernel("ff_intersect_general", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # rays tmax tri boxes
+    ctypes.c_void_p, ctypes.c_void_p,  # out_t out_prim
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R Tpad NC chunk
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # t_min any_hit stream
+])
+
+
+# ---------------------------------------------------------------------------
+# Packing
+# ---------------------------------------------------------------------------
+
+
+def morton_order(centroids) -> np.ndarray:
+    """Face ordering along a 3D Morton curve (host-side, rest pose)."""
+    c = np.asarray(centroids, np.float64)
+    lo = c.min(axis=0)
+    span = np.maximum(c.max(axis=0) - lo, 1e-12)
+    q = np.clip(((c - lo) / span * 1023.0).astype(np.uint64), 0, 1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    code = (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
+    return np.argsort(code, kind="stable")
+
+
+def _cluster_boxes(fmin: Tensor, fmax: Tensor, chunk: int) -> Tensor:
+    """(B, F, 3) per-face bounds -> (B, 6, NC) per-cluster AABBs."""
+    b, f, _ = fmin.shape
+    n_chunks = -(-f // chunk)
+    pad = n_chunks * chunk - f
+    if pad:
+        fmin = torch.cat([fmin, fmin.new_full((b, pad, 3), _BIG)], dim=1)
+        fmax = torch.cat([fmax, fmax.new_full((b, pad, 3), -_BIG)], dim=1)
+    cmin = fmin.reshape(b, n_chunks, chunk, 3).amin(dim=2)
+    cmax = fmax.reshape(b, n_chunks, chunk, 3).amax(dim=2)
+    return torch.cat([cmin, cmax], dim=2).transpose(1, 2).contiguous()
+
+
+def _pad_faces(x: Tensor, chunk: int) -> Tensor:
+    """(B, K, F) -> (B, K, Tpad) with zero columns."""
+    pad = -x.shape[2] % chunk
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def pack_triangles(vertices: Tensor, faces: Tensor, chunk: int = CHUNK):
+    """(B, V, 3) vertices over (F, 3) faces -> (tri (B, 9, Tpad),
+    boxes (B, 6, NC))."""
+    v0 = vertices[:, faces[:, 0]]
+    v1 = vertices[:, faces[:, 1]]
+    v2 = vertices[:, faces[:, 2]]
+    tri = torch.cat([v0, v1 - v0, v2 - v0], dim=2).transpose(1, 2)
+    tri = _pad_faces(tri, chunk).contiguous()
+    fmin = torch.minimum(torch.minimum(v0, v1), v2)
+    fmax = torch.maximum(torch.maximum(v0, v1), v2)
+    return tri, _cluster_boxes(fmin, fmax, chunk)
+
+
+def _pad_rays(x: Tensor, fill, r: int) -> Tensor:
+    n = x.shape[1]
+    if r == n:
+        return x
+    tail = torch.as_tensor(fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x, tail.expand(x.shape[0], r - n, *x.shape[2:])], dim=1)
+
+
+def _pad_tmax(t_max, b: int, n: int, r: int, device) -> Tensor:
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device).expand(b, n)
+    return _pad_rays(t_max, -1.0, r).reshape(b, r // LANES, LANES).contiguous()
+
+
+def pack_rays(o: Tensor, d: Tensor, t_max):
+    """(B, N, 3) rays -> ((B, 6, R/128, 128) SoA, (B, R/128, 128) tmax, N)."""
+    b, n, _ = o.shape
+    r = -(-n // RAY_TILE) * RAY_TILE
+    o = _pad_rays(o, 0.0, r)
+    d = _pad_rays(d, [0.0, 0.0, 1.0], r)
+    soa = torch.cat([o.transpose(1, 2), d.transpose(1, 2)], dim=1)
+    return (soa.reshape(b, 6, r // LANES, LANES).contiguous(),
+            _pad_tmax(t_max, b, n, r, o.device), n)
+
+
+def pack_triangles_woop(vertices: Tensor, faces: Tensor, origin: Tensor, chunk: int = CHUNK):
+    """Woop precompute for shared-origin batches.
+
+    Per triangle, with n = e1 x e2 and det = |n|^2, the rows
+    W0 = (e2 x n)/det, W1 = (n x e1)/det, W2 = n/det map a point into the
+    triangle's unit frame; o' = W (o - v0) is a per-triangle constant for a
+    shared origin o, so a (ray, triangle) pair only needs d' = W d.
+    origin: (B, 3).  Returns (woop (B, 12, Tpad) [W0, W1, W2, o'],
+    boxes (B, 6, NC) shifted by -origin).
+    """
+    v0 = vertices[:, faces[:, 0]]
+    v1 = vertices[:, faces[:, 1]]
+    v2 = vertices[:, faces[:, 2]]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = torch.linalg.cross(e1, e2)
+    det = torch.sum(n * n, dim=-1, keepdim=True)
+    zero = det < 1e-18
+    safe_det = torch.where(zero, 1.0, det)
+    w0 = torch.where(zero, 0.0, torch.linalg.cross(e2, n) / safe_det)
+    w1 = torch.where(zero, 0.0, torch.linalg.cross(n, e1) / safe_det)
+    w2 = torch.where(zero, 0.0, n / safe_det)
+    rel = origin[:, None, :] - v0
+    op = torch.stack(
+        [torch.sum(w0 * rel, -1), torch.sum(w1 * rel, -1), torch.sum(w2 * rel, -1)], dim=-1)
+    woop = torch.cat([w0, w1, w2, op], dim=2).transpose(1, 2)
+    woop = _pad_faces(woop, chunk).contiguous()
+    shift = origin[:, None, :]
+    fmin = torch.minimum(torch.minimum(v0, v1), v2) - shift
+    fmax = torch.maximum(torch.maximum(v0, v1), v2) - shift
+    return woop, _cluster_boxes(fmin, fmax, chunk)
+
+
+def pack_dirs(d: Tensor, t_max, ray_tile: int = RAY_TILE):
+    """(B, N, 3) directions -> ((B, 3, R/128, 128) SoA, (B, R/128, 128) tmax, N)."""
+    b, n, _ = d.shape
+    r = -(-n // ray_tile) * ray_tile
+    d = _pad_rays(d, [0.0, 0.0, 1.0], r)
+    return (d.transpose(1, 2).reshape(b, 3, r // LANES, LANES).contiguous(),
+            _pad_tmax(t_max, b, n, r, d.device), n)
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def _carry_min(t: Tensor, base: int, best_t: Tensor, best_p: Tensor):
+    """Fold a (rays, faces) block of candidate t (BIG = none) into the
+    running closest hit."""
+    cmin, carg = t.min(dim=1)
+    better = cmin < best_t
+    return torch.where(better, cmin, best_t), torch.where(better, carg.to(torch.int32) + base, best_p)
+
+
+def intersect_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: Tensor,
+                           t_min: float, any_hit: bool = False, chunk: int = CHUNK):
+    """Plain PyTorch version of the general-origin kernel: the rational
+    Möller-Trumbore test of `csrc/intersect_general.cu` as a blocked
+    broadcast over (rays, faces), closest hit by argmin.  Any-hit returns
+    the closest hit too (its `prim >= 0` mask is what any-hit means).
+    Returns (t, prim) shaped like `tmax_tiles`; prim = -1 on a miss."""
+    del any_hit, boxes, chunk  # the AABB skip is an optimisation, not semantics
+    b = rays_soa.shape[0]
+    r = tmax_tiles[0].numel()
+    rays = rays_soa.reshape(b, 6, r)
+    tmax = tmax_tiles.reshape(b, r)
+    out_t = torch.empty(b, r, dtype=torch.float32, device=rays.device)
+    out_p = torch.empty(b, r, dtype=torch.int32, device=rays.device)
+    n_face = tri.shape[2]
+    for bi in range(b):
+        for r0 in range(0, r, RAY_BLOCK):
+            ox, oy, oz, dx, dy, dz = (rays[bi, k, r0:r0 + RAY_BLOCK, None] for k in range(6))
+            tm = tmax[bi, r0:r0 + RAY_BLOCK, None]
+            best_t = torch.full_like(tm[:, 0], _BIG)
+            best_p = torch.full(best_t.shape, -1, dtype=torch.int32, device=best_t.device)
+            for f0 in range(0, n_face, FACE_BLOCK):
+                (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = (
+                    tri[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(9))
+                px = dy * e2z - dz * e2y
+                py = dz * e2x - dx * e2z
+                pz = dx * e2y - dy * e2x
+                det = e1x * px + e1y * py + e1z * pz
+                tx = ox - v0x
+                ty = oy - v0y
+                tz = oz - v0z
+                qx = ty * e1z - tz * e1y
+                qy = tz * e1x - tx * e1z
+                qz = tx * e1y - ty * e1x
+                sgn = torch.where(det >= 0.0, 1.0, -1.0)
+                dn = det * sgn
+                un = (tx * px + ty * py + tz * pz) * sgn
+                vn = (dx * qx + dy * qy + dz * qz) * sgn
+                tn = (e2x * qx + e2y * qy + e2z * qz) * sgn
+                eb = _EPS_BARY * dn
+                ok = ((dn >= _EPS_DET) & (un >= -eb) & (vn >= -eb) & (un + vn <= dn + eb)
+                      & (tn > t_min * dn) & (tn < tm * dn))
+                t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
+                best_t, best_p = _carry_min(t, f0, best_t, best_p)
+            out_t[bi, r0:r0 + RAY_BLOCK] = torch.where(best_p >= 0, best_t, 0.0)
+            out_p[bi, r0:r0 + RAY_BLOCK] = best_p
+    return out_t.reshape(tmax_tiles.shape), out_p.reshape(tmax_tiles.shape)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+
+def intersect_packed(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: Tensor,
+                     t_min: float, any_hit: bool = False, chunk: int = CHUNK):
+    """General-origin closest/any-hit over packed inputs.  CPU tensors take
+    the plain version; CUDA tensors launch `csrc/intersect_general.cu`
+    (one thread per ray, grid (R/256, B)) or raise."""
+    if rays_soa.device.type == "cpu":
+        return intersect_packed_plain(rays_soa, tmax_tiles, tri, boxes, t_min, any_hit, chunk)
+    dev = rays_soa.device
+    b, _, rows, _ = rays_soa.shape
+    r = rows * LANES
+    n_face, nc = tri.shape[2], boxes.shape[2]
+    if r % RAY_TILE or n_face != nc * chunk:
+        raise ValueError(f"bad packing: R={r}, Tpad={n_face}, NC={nc}, chunk={chunk}")
+    check_cuda("rays_soa", rays_soa, torch.float32, (b, 6, rows, LANES), dev)
+    check_cuda("tmax_tiles", tmax_tiles, torch.float32, (b, rows, LANES), dev)
+    check_cuda("tri", tri, torch.float32, (b, 9, n_face), dev)
+    check_cuda("boxes", boxes, torch.float32, (b, 6, nc), dev)
+    KERNEL.record(rays_soa=rays_soa, tmax_tiles=tmax_tiles, tri=tri, boxes=boxes, t_min=t_min,
+                  any_hit=any_hit, chunk=chunk)
+    out_t = torch.empty(b, rows, LANES, dtype=torch.float32, device=dev)
+    out_p = torch.empty(b, rows, LANES, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        KERNEL.launch(ptr(rays_soa), ptr(tmax_tiles), ptr(tri), ptr(boxes), ptr(out_t),
+                      ptr(out_p), b, r, n_face, nc, chunk, float(t_min), int(any_hit),
+                      stream_of(dev))
+    return out_t, out_p
+
+
+def intersect_cuda(o: Tensor, d: Tensor, vertices: Tensor, faces: Tensor,
+                   t_min: float = 1e-4, t_max=1e30, any_hit: bool = False,
+                   chunk: int = CHUNK):
+    """Closest-hit (or any-hit) query for per-ray origins; counterpart of
+    `intersect_pallas`.  o, d: (B, N, 3); vertices (B, V, 3).  Returns
+    (t (B, N), prim (B, N) int32).  Traversal is detached by construction."""
+    tri, boxes = pack_triangles(vertices.detach(), faces, chunk=chunk)
+    rays_soa, tmax_tiles, n = pack_rays(o.detach(), d.detach(),
+                                        torch.as_tensor(t_max).detach())
+    t, prim = intersect_packed(rays_soa, tmax_tiles, tri, boxes, t_min, any_hit, chunk)
+    b = o.shape[0]
+    return t.reshape(b, -1)[:, :n], prim.reshape(b, -1)[:, :n]
