@@ -1,20 +1,37 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's render paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # 512x512, spp 1, 2 bounces, 16 variants
+    python3 chip_smoke.py
+
+Three paths, each a batch of 16 randomized vocalfold variants at 512x512
+with 2 bounces through `main_path.render_batch` / `pattern_step`:
+  * main: 1440 faces, spp 1 (the reference benchmark's default; kernels B1
+    for camera and shadow rays, B3 for bounce rays);
+  * reference shape: 11538 faces, spp 4, coherent bounce, shared primary
+    (B2 for camera and shadow rays, B4 for bounce rays, with kernel-emitted
+    hit attributes);
+  * mid-sized: 5288 faces, spp 1 (B1, and B5 for bounce rays).
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: the card's name and power limit; CUDA must be available;
-  2. build: compile the CUDA kernels of fireflies_tpu_torch/csrc from source;
-  3. kernels: every kernel launch of one main-path forward batch (16
-     randomized vocalfold variants at 512x512: camera rays, spot-light and
-     projector shadow rays, bounce rays) recorded and replayed through the
-     kernel and its plain PyTorch version, with times;
-  4. reference: the CUDA path against the CPU path (plain versions, held
-     against the JAX package by the tests) on a small deterministic render;
-  5. forward: `render_batch` with the launch counters reset just before it,
-     then renders/s (median of 5 timed batches);
-  6. pattern step: loss and the (144, 3) beam gradient, seconds per step and
-     peak device memory.
+  2. build: compile the CUDA kernels of fireflies_tpu_torch/csrc from
+     source, one nvcc per source, all started together;
+  then for each path:
+  3. kernels: the kernel launches of one forward batch recorded and
+     replayed through the kernel and its plain PyTorch version, with times
+     and each launch's bound (from the pairs the kernel reports it tested).
+     On the main path every launch is replayed;
+     on the two larger paths only the first launch of each (kernel, mode),
+     and the plain version runs on the first 2 of the 16 variants (the
+     kernel's output for those variants is compared; the plain versions
+     are slow at 11.5k faces);
+  4. reference (main path): the CUDA path against the CPU path (plain
+     versions, held against the JAX package by the tests) on a small
+     deterministic render;
+  5. forward: `render_batch` with every launch counter set to 0 just before
+     it and read just after: the path's kernels must have launched and the
+     other routes' must not; then renders/s (median of 5 timed batches);
+  6. pattern step (main and reference-shape paths): loss and the (144, 3)
+     beam gradient, seconds per step and peak device memory.
 Then one JSON line with the kernels, the nvidia-smi line, and the result
 line `{"ok": true, "device": {...}}` last.
 """
@@ -55,11 +72,12 @@ def cuda_ms(fn, repeats: int) -> float:
 def compare(name, kernel_out, plain_out, any_hit: bool) -> dict:
     """Mismatch count and max |t| error of a kernel against its plain
     version.  Any-hit compares the blocked masks; closest hit allows a
-    different prim only at a t-tie (1e-5 relative).  Wherever the prims
-    agree, t must agree to 1e-5 relative (1e-6 absolute)."""
+    different prim only at a t-tie (1e-5 relative), on at most 1e-4 of the
+    rays.  Wherever the prims agree, t must agree to 1e-5 relative (1e-6
+    absolute) and emitted normals and material ids must be equal."""
     import torch  # noqa: PLC0415
 
-    (t_k, p_k), (t_p, p_p) = kernel_out, plain_out
+    (t_k, p_k, *attrs_k), (t_p, p_p, *attrs_p) = kernel_out, plain_out
     n_rays = p_p.numel()
     hit_diff = (p_k >= 0) != (p_p >= 0)
     if any_hit:
@@ -72,63 +90,171 @@ def compare(name, kernel_out, plain_out, any_hit: bool) -> dict:
     err = float(dt.max()) if dt.numel() else 0.0
     off_t = int((dt > 1e-6 + 1e-5 * t_p.abs()[same]).sum())
     n_hit = int((p_p >= 0).sum())
+    if len(attrs_k) != len(attrs_p):
+        raise AssertionError(f"{name}: {len(attrs_k)} attribute outputs against {len(attrs_p)}")
+    off_attr = sum(int((a_k != a_p)[same].sum()) for a_k, a_p in zip(attrs_k, attrs_p))
     log(f"  {name}: {bad} mismatched of {n_rays} rays ({n_hit} hit), max |dt| {err:.3g}, "
-        f"{off_t} beyond 1e-5 relative")
+        f"{off_t} beyond 1e-5 relative" + (f", {off_attr} attribute values differ"
+                                           if attrs_k else ""))
     if any_hit and bad:
         raise AssertionError(f"{name}: any-hit masks differ on {bad} rays")
     if bad > 1e-4 * n_rays:
         raise AssertionError(f"{name}: {bad} mismatched rays exceed 1e-4 of {n_rays}")
     if off_t:
         raise AssertionError(f"{name}: t differs beyond 1e-5 relative on {off_t} rays")
+    if off_attr:
+        raise AssertionError(f"{name}: emitted attributes differ on {off_attr} values")
     if not torch.isfinite(t_k).all():
         raise AssertionError(f"{name}: non-finite t")
     return {"mismatched": bad, "max_abs_err": err}
 
 
-def kernel_phase(bridge, randomize, beams, cfg, seeds) -> dict:
-    """Each kernel against its plain version on the inputs the main path
-    gives it: one forward batch records every launch's inputs, and each is
-    replayed through the kernel and the plain version.  Each closest-hit
-    launch is replayed as any-hit too, since the scene casts no shadow
-    where an emitter lights it and the main path's own any-hit launches
-    find few or no blockers.  B1's times exclude building its tile lists, which
-    are timed on their own (`lists_ms`)."""
+# Float operations per tested (ray, triangle) pair, counted from the pair
+# tests in csrc/ (multiplies, adds, subtractions, negations and compares;
+# the selects that keep the best hit not counted): the shared-origin Woop
+# test (B1, B2), the general Woop test with o' formed per pair (B4), and
+# the rational Moller-Trumbore test (B3, B5).
+OPS_PER_PAIR = {"intersect_shared_culled": 40, "intersect_stream_culled": 40,
+                "intersect_stream_general_culled": 58, "intersect_general": 62,
+                "intersect_general_culled": 62}
+# H100 SXM FP32 outside the tensor cores: 67 TFLOP/s counts a fused
+# multiply-add as two operations.  The kernels are built with --fmad=false,
+# so each multiply, add and compare issues on its own: 33.5e12 a second.
+PEAK_FP32_OPS = 67e12 / 2
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+
+
+def bound(name: str, rec: dict, n_out: int, tested) -> dict:
+    """The least time the card could take for one launch: the larger of
+    its bytes (every input tensor read once, `n_out` 4-byte outputs per
+    ray written once) over the memory rate, and its operations over the
+    rate of single FP32 operations.  The operations are the pairs the
+    kernel tested on this launch's data (`tested`: per live ray, the
+    clusters its block tested after the block's slab vote) x the faces of
+    a cluster x OPS_PER_PAIR; the per-cluster slab tests are left out.
+    Also the pairs on the tile lists (every cluster without lists), which
+    the kernel tests at most."""
     import torch  # noqa: PLC0415
 
-    from fireflies_tpu_torch import main_path  # noqa: PLC0415
-    from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
-    from fireflies_tpu_torch.render.cuda import intersect_culled as ic  # noqa: PLC0415
-    from fireflies_tpu_torch.render.cuda import intersect_kernel as ik  # noqa: PLC0415
+    from fireflies_tpu_torch.render.cuda.intersect_kernel import RAY_TILE  # noqa: PLC0415
 
-    versions = {"intersect_shared_culled": (ic.intersect_culled_packed,
-                                            ic.intersect_culled_packed_plain),
-                "intersect_general": (ik.intersect_packed, ik.intersect_packed_plain)}
+    tensors = [v for v in rec.values() if isinstance(v, torch.Tensor)]
+    tmax = rec["tmax_tiles"]
+    b = tmax.shape[0]
+    n_rays = tmax[0].numel()
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + n_out * 4 * b * n_rays
+    table = rec.get("woop16", rec.get("woop", rec.get("tri")))
+    nc = rec["boxes"].shape[2]
+    faces_per_cluster = table.shape[2] // nc
+    if "counts" in rec:
+        listed = rec["counts"].expand(b, n_rays // RAY_TILE, RAY_TILE).reshape(tmax.shape)
+    else:
+        listed = torch.full_like(tested, nc)
+    listed = torch.where(tmax >= 0, listed, 0)
+    over = int((tested > listed).sum())
+    if over:
+        raise AssertionError(f"{name}: {over} rays report more tested clusters than listed")
+    pairs = float(tested.double().sum()) * faces_per_cluster
+    ops = pairs * OPS_PER_PAIR[name]
+    mem_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
+    return {"bound_ms": max(mem_ms, ops_ms),
+            "bound_by": "bytes" if mem_ms > ops_ms else "operations",
+            "pairs": pairs, "listed_pairs": float(listed.double().sum()) * faces_per_cluster,
+            "bytes": nbytes}
+
+
+def versions():
+    from fireflies_tpu_torch.render.cuda import intersect_culled as ic  # noqa: PLC0415
+    from fireflies_tpu_torch.render.cuda import intersect_general_culled as igc  # noqa: PLC0415
+    from fireflies_tpu_torch.render.cuda import intersect_kernel as ik  # noqa: PLC0415
+    from fireflies_tpu_torch.render.cuda import intersect_stream as ist  # noqa: PLC0415
+
+    def shared_lists(rec):
+        rays = rec["rays_soa"] if "rays_soa" in rec else rec["dirs_soa"]
+        return ic.tile_cluster_lists(rays, rec["boxes"], t_min=rec["t_min"],
+                                     tmax_tiles=rec["tmax_tiles"])
+
+    def general_lists(rec):
+        return ic.tile_cluster_lists_general(rec["rays_soa"], rec["boxes"], t_min=rec["t_min"],
+                                             tmax_tiles=rec["tmax_tiles"])
+
+    # name: (kernel wrapper, plain version, tile-list builder or None)
+    return {
+        "intersect_shared_culled": (ic.intersect_culled_packed, ic.intersect_culled_packed_plain,
+                                    shared_lists),
+        "intersect_general": (ik.intersect_packed, ik.intersect_packed_plain, None),
+        "intersect_stream_culled": (ist.intersect_stream_culled_packed,
+                                    ist.stream_culled_packed_plain, shared_lists),
+        "intersect_stream_general_culled": (ist.intersect_stream_general_culled_packed,
+                                            ist.stream_culled_packed_plain, general_lists),
+        "intersect_general_culled": (igc.intersect_general_culled_packed,
+                                     igc.intersect_general_culled_packed_plain, general_lists),
+    }
+
+
+def _first(rec: dict, n: int) -> dict:
+    """The recorded inputs of the first n variants."""
+    import torch  # noqa: PLC0415
+
+    return {k: v[:n].contiguous() if isinstance(v, torch.Tensor) else v for k, v in rec.items()}
+
+
+def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None) -> dict:
+    """Each kernel against its plain version on the inputs a path gives it:
+    one forward batch records every launch's inputs, and each (or, with
+    `first_only`, the first of each kernel and mode) is replayed through
+    the kernel and the plain version, the latter on the first
+    `plain_variants` variants when given.  Each closest-hit launch is
+    replayed as any-hit too, since the scene casts no shadow where an
+    emitter lights it and a path's own any-hit launches find few or no
+    blockers.  Kernel times exclude building the tile lists, which are
+    timed on their own (`lists_ms`)."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
+
+    table = versions()
     for k in KERNELS.values():
         k.recorded = []
     with torch.no_grad():
-        main_path.render_batch(bridge, randomize, beams, seeds, cfg)
+        drive()
     torch.cuda.synchronize()
     results = {}
     for name, k in KERNELS.items():
         recorded, k.recorded = k.recorded, None
         if not recorded:
-            raise AssertionError(f"{name}: the main path did not launch it")
-        kernel_fn, plain_fn = versions[name]
-        cases = []
+            continue
+        kernel_fn, plain_fn, lists_fn = table[name]
+        cases, seen = [], set()
         for i, rec in enumerate(recorded):
-            cases.append((f"{name}/{'any' if rec['any_hit'] else 'closest'}#{i}", rec, False))
+            mode = "any" if rec["any_hit"] else "closest"
+            if first_only and mode in seen:
+                continue
+            seen.add(mode)
+            cases.append((f"{path}/{name}/{mode}#{i}", rec, False))
             if not rec["any_hit"]:
-                cases.append((f"{name}/closest#{i}/as-any", {**rec, "any_hit": True}, True))
+                cases.append((f"{path}/{name}/{mode}#{i}/as-any",
+                              {**rec, "any_hit": True, **({"emit_attrs": False}
+                                                          if "emit_attrs" in rec else {})}, True))
         for case, rec, replayed in cases:
-            res = compare(case, kernel_fn(**rec), plain_fn(**rec), rec["any_hit"])
-            res.update(kernel=name, any_hit=rec["any_hit"], replayed=replayed)
+            rec_p = _first(rec, plain_variants) if plain_variants else rec
+            nv = rec_p["tmax_tiles"].shape[0]
+            out_k = kernel_fn(**rec)
+            res = compare(case, [x[:nv] for x in out_k], plain_fn(**rec_p), rec["any_hit"])
+            res.update(kernel=name, path=path, any_hit=rec["any_hit"], replayed=replayed,
+                       plain_variants=nv, variants=rec["tmax_tiles"].shape[0])
             res["ms"] = cuda_ms(lambda rec=rec: kernel_fn(**rec), 20)
-            res["plain_ms"] = cuda_ms(lambda rec=rec: plain_fn(**rec), 2)
-            line = f"  {case}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms"
-            if "lists" in rec and not replayed:
-                res["lists_ms"] = cuda_ms(lambda rec=rec: ic.tile_cluster_lists(
-                    rec["dirs_soa"], rec["boxes"], t_min=rec["t_min"],
-                    tmax_tiles=rec["tmax_tiles"]), 20)
+            res["plain_ms"] = cuda_ms(lambda rec=rec_p: plain_fn(**rec), 2)
+            tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
+            kernel_fn(**rec, tested=tested)
+            res.update(bound(name, rec, len(out_k), tested))
+            line = (f"  {case}: kernel {res['ms']:.4f} ms ({res['variants']} variants), plain "
+                    f"{res['plain_ms']:.4f} ms ({nv} variants), bound {res['bound_ms']:.4f} ms "
+                    f"({res['bound_by']}; {res['pairs']:.4g} pairs tested of "
+                    f"{res['listed_pairs']:.4g} listed; bound / kernel "
+                    f"{res['bound_ms'] / res['ms']:.3f})")
+            if lists_fn is not None and not replayed:
+                res["lists_ms"] = cuda_ms(lambda rec=rec: lists_fn(rec), 20)
                 line += f", tile lists {res['lists_ms']:.4f} ms"
             log(line)
             results[case] = res
@@ -165,8 +291,86 @@ def reference_phase(bridge, randomize, beams, dev) -> None:
         raise AssertionError("CUDA render disagrees with the plain-version render")
 
 
+def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected, absent) -> dict:
+    """One counted forward batch (every counter set to 0 just before, read
+    just after): each kernel of `expected` must have launched and none of
+    `absent`; then renders/s, the median of 5 timed batches after one
+    more.  Returns the counts by kernel name."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
+
+    for k in KERNELS.values():
+        k.launches = 0
+    with torch.no_grad():
+        img = main_path.render_batch(bridge, randomize, beams, seeds, cfg)
+        torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"[{tag}/forward] image {tuple(img.shape)} mean {img.mean().item():.6g} "
+        f"max {img.max().item():.6g}; launches {launches}")
+    if tuple(img.shape) != (len(seeds), cfg.height, cfg.width, 3):
+        raise AssertionError(f"unexpected image shape {tuple(img.shape)}")
+    if not torch.isfinite(img).all() or img.abs().max() == 0:
+        raise AssertionError("image is not finite or is all zero")
+    if any(launches[n] <= 0 for n in expected):
+        raise AssertionError(f"{tag}: a kernel of the path was never launched: {launches}")
+    if any(launches[n] > 0 for n in absent):
+        raise AssertionError(f"{tag}: a kernel of another route was launched: {launches}")
+    times = []
+    with torch.no_grad():
+        main_path.render_batch(bridge, randomize, beams, seeds, cfg)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            main_path.render_batch(bridge, randomize, beams, seeds, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    log(f"[{tag}/forward] {len(seeds) / med:.4f} renders/s (median batch {med:.4f} s; "
+        f"batches {[round(t, 4) for t in times]})")
+    return launches
+
+
+def pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev) -> None:
+    """Pattern step after a one-variant warm-up (the first backward in a
+    process loads the backward ops' kernels): loss and a finite, nonzero
+    (144, 3) beam gradient, s/step and peak device memory."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    main_path.pattern_step(bridge, randomize, beams, seeds[:1], cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grad = main_path.pattern_step(bridge, randomize, beams, seeds, cfg)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[{tag}/pattern_step] loss {loss.item():.6g} |grad| {grad.norm().item():.6g} "
+        f"{step_s:.4f} s/step, peak {peak:.3f} GiB")
+    if tuple(grad.shape) != (144, 3) or not torch.isfinite(grad).all() or grad.abs().max() == 0:
+        raise AssertionError("beam gradient is not a finite nonzero (144, 3) tensor")
+
+
 SIZE = 512
 BATCH = 16
+B1, B3 = "intersect_shared_culled", "intersect_general"
+B2, B4 = "intersect_stream_culled", "intersect_stream_general_culled"
+B5 = "intersect_general_culled"
+SOURCES = {
+    B1: ("fireflies_tpu_torch/csrc/intersect_shared_culled.cu",
+         "fireflies_tpu/render/pallas/intersect_culled.py:700"),
+    B3: ("fireflies_tpu_torch/csrc/intersect_general.cu",
+         "fireflies_tpu/render/pallas/intersect_kernel.py:602"),
+    B2: ("fireflies_tpu_torch/csrc/intersect_stream_culled.cu",
+         "fireflies_tpu/render/pallas/intersect_stream.py:644"),
+    B4: ("fireflies_tpu_torch/csrc/intersect_stream_general_culled.cu",
+         "fireflies_tpu/render/pallas/intersect_stream.py:1097"),
+    B5: ("fireflies_tpu_torch/csrc/intersect_general_culled.cu",
+         "fireflies_tpu/render/pallas/intersect_culled.py:465"),
+}
 
 
 def main() -> int:
@@ -182,7 +386,6 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     from fireflies_tpu_torch import _build, main_path  # noqa: PLC0415
-    from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
 
     # 2. build
     cached = _build.library_path().exists()
@@ -192,84 +395,61 @@ def main() -> int:
         + (" (already built)" if cached else ""))
     report = _build.library_path().with_suffix(".log")
     for line in report.read_text().splitlines() if report.exists() else []:
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or line.startswith("=="):
             log("  " + line.strip())
 
-    bridge, randomize, beams = main_path.build(dev)
-    cfg = main_path.bench_config(size=SIZE)
     seeds = list(range(BATCH))
+    kres, launches, kernel_path = {}, {}, {}
+    # (shape in main_path.SHAPES, kernels of the path, kernels of other
+    # routes, replay only the first launch of each (kernel, mode), plain
+    # versions' variants, pattern step)
+    paths = [
+        ("main", (B1, B3), (B2, B4, B5), False, None, True),
+        ("reference", (B2, B4), (B1, B3, B5), True, 2, True),
+        ("mid", (B1, B5), (B2, B3, B4), True, 2, False),
+    ]
+    for tag, expected, absent, first_only, plain_nv, step in paths:
+        t_path = time.perf_counter()
+        resolution, shape_cfg = main_path.SHAPES[tag]
+        cfg = main_path.bench_config(size=SIZE, **shape_cfg)
+        bridge, randomize, beams = main_path.build(dev, resolution=resolution)
+        log(f"[{tag}/kernels] {BATCH} variants x {SIZE}x{SIZE} rays, spp {cfg.spp}, "
+            f"{len(bridge._faces)} faces (vocalfold resolution {resolution})"
+            + (f"; first launch of each (kernel, mode) only, plain versions on the first "
+               f"{plain_nv} variants" if first_only else "; every launch"))
+        res = kernel_phase(tag, lambda: main_path.render_batch(bridge, randomize, beams, seeds,
+                                                               cfg), first_only, plain_nv)
+        kres.update(res)
+        if tag == "main":
+            log("[main/reference]")
+            reference_phase(bridge, randomize, beams, dev)
+        counts = forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected, absent)
+        for name in expected:
+            if name not in kernel_path:
+                kernel_path[name] = tag
+                launches[name] = counts[name]
+        if step:
+            pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
+        log(f"[{tag}] {time.perf_counter() - t_path:.1f} s")
 
-    # 3. kernels against plain versions
-    log("[kernels] main-path shapes: "
-        f"{BATCH} variants x {SIZE}x{SIZE} rays, 1440 faces")
-    kres = kernel_phase(bridge, randomize, beams, cfg, seeds)
-
-    # 4. reference
-    log("[reference]")
-    reference_phase(bridge, randomize, beams, dev)
-
-    # 5. forward main path, counted
-    for k in KERNELS.values():
-        k.launches = 0
-    with torch.no_grad():
-        img = main_path.render_batch(bridge, randomize, beams, seeds, cfg)
-        torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in KERNELS.items()}
-    log(f"[forward] image {tuple(img.shape)} mean {img.mean().item():.6g} "
-        f"max {img.max().item():.6g}; launches {launches}")
-    if tuple(img.shape) != (BATCH, SIZE, SIZE, 3):
-        raise AssertionError(f"unexpected image shape {tuple(img.shape)}")
-    if not torch.isfinite(img).all() or img.abs().max() == 0:
-        raise AssertionError("image is not finite or is all zero")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
-    times = []
-    with torch.no_grad():
-        main_path.render_batch(bridge, randomize, beams, seeds, cfg)
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            main_path.render_batch(bridge, randomize, beams, seeds, cfg)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    log(f"[forward] {BATCH / med:.4f} renders/s (median batch {med:.4f} s; "
-        f"batches {[round(t, 4) for t in times]})")
-
-    # 6. pattern step, after a one-variant warm-up (the first backward in a
-    # process loads the backward ops' kernels)
-    main_path.pattern_step(bridge, randomize, beams, seeds[:1], cfg)
-    torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss, grad = main_path.pattern_step(bridge, randomize, beams, seeds, cfg)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    log(f"[pattern_step] loss {loss.item():.6g} |grad| {grad.norm().item():.6g} "
-        f"{step_s:.4f} s/step, peak {peak:.3f} GiB")
-    if tuple(grad.shape) != (144, 3) or not torch.isfinite(grad).all() or grad.abs().max() == 0:
-        raise AssertionError("beam gradient is not a finite nonzero (144, 3) tensor")
-
-    sources = {
-        "intersect_shared_culled": ("fireflies_tpu_torch/csrc/intersect_shared_culled.cu",
-                                    "fireflies_tpu/render/pallas/intersect_culled.py:700"),
-        "intersect_general": ("fireflies_tpu_torch/csrc/intersect_general.cu",
-                              "fireflies_tpu/render/pallas/intersect_kernel.py:602"),
-    }
     kernels = []
-    for name, (src, replaces) in sources.items():
-        mine = [r for r in kres.values() if r["kernel"] == name]
+    for name, (src, replaces) in SOURCES.items():
+        mine = [r for r in kres.values() if r["kernel"] == name and r["path"] == kernel_path[name]]
         closest = next(r for r in mine if not r["any_hit"])
-        # The main path's own any-hit launch where it has one (B1's shadow
-        # rays), else a closest-hit launch replayed as any-hit (B3).
+        # The path's own any-hit launch where it has one (shadow rays), else
+        # a closest-hit launch replayed as any-hit.
         any_hit = min((r for r in mine if r["any_hit"]), key=lambda r: r["replayed"])
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name],
+            "path": kernel_path[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": closest["ms"], "plain_ms": closest["plain_ms"],
+            "plain_variants": closest["plain_variants"],
+            "bound_ms": closest["bound_ms"], "bound_by": closest["bound_by"],
+            "tested_pairs": closest["pairs"], "listed_pairs": closest["listed_pairs"],
+            "library_ms": None,
             "any_hit_ms": any_hit["ms"], "any_hit_plain_ms": any_hit["plain_ms"],
+            "any_hit_bound_ms": any_hit["bound_ms"],
         }
         if "lists_ms" in closest:
             entry["tile_lists_ms"] = closest["lists_ms"]

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
 On first use, `nvcc` compiles every `csrc/*.cu` file for Hopper
-(`sm_90a`) into one shared library with a plain C interface under
+(`sm_90a`), one process per source, all started together, and links the
+objects into one shared library with a plain C interface under
 `build/fireflies_tpu_torch/` at the root of the checkout, keyed by a hash
 of the sources and flags; `ctypes` loads it.  No PyTorch headers are
 involved, so a build takes seconds.  Nothing here runs at import time.
@@ -31,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "fireflies_tpu_to
 # exactly like the plain PyTorch versions' separate elementwise ops.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -43,7 +44,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
@@ -59,12 +60,33 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        stem = so.with_suffix(f".{os.getpid()}")
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = stem.with_name(f"{stem.name}.{src.stem}.o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out}")
+        if not failed:
+            tmp = stem.with_name(stem.name + ".tmp")
+            proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True, check=False)
+            log.append(f"== link\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+        so.with_suffix(".log").write_text("".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, so)
     return ctypes.CDLL(str(so))
 
@@ -116,6 +138,17 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def tested_ptr(tested: torch.Tensor | None, shape: tuple, device) -> ctypes.c_void_p | None:
+    """The kernels' optional `tested` output: per ray, the clusters whose
+    faces its block tested (int32, shaped like tmax), which the pair-test
+    bound of a launch is counted from.  None is a null pointer (not
+    counted).  Only the kernels count: a CPU tensor raises."""
+    if tested is None:
+        return None
+    check_cuda("tested", tested, torch.int32, shape, device)
+    return ptr(tested)
 
 
 def stream_of(device) -> ctypes.c_void_p:

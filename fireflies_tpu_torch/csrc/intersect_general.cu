@@ -19,7 +19,9 @@
 // on each cluster's slab test (__syncthreads_or) and skips it together; an
 // all-dead block skips the loop (closest hit) and any-hit mode leaves the
 // loop once every live ray is blocked (__syncthreads_and).  Dead rays
-// (tmax < 0) never hit.  Warp-level culling, persistent blocks and
+// (tmax < 0) never hit.  `tested`, unless null, gets each live ray's number
+// of clusters whose faces its block tested (0 for a dead ray), the count that
+// the pair-test bound of a launch is taken from.  Warp-level culling, persistent blocks and
 // front-to-back cluster order are later work.
 
 #include <cuda_runtime.h>
@@ -39,8 +41,9 @@ __device__ __forceinline__ float safe_inv(float x) {
 __global__ void __launch_bounds__(kThreads)
 intersect_general_kernel(const float* __restrict__ rays, const float* __restrict__ tmax_in,
                          const float* __restrict__ tri, const float* __restrict__ boxes,
-                         float* __restrict__ out_t, int* __restrict__ out_prim, int R, int tpad,
-                         int nc, int chunk, float t_min, int any_hit) {
+                         float* __restrict__ out_t, int* __restrict__ out_prim,
+                         int* __restrict__ tested, int R, int tpad, int nc, int chunk,
+                         float t_min, int any_hit) {
   extern __shared__ float s_tri[];  // [9][chunk]
   const int b = blockIdx.y;
   const int r = blockIdx.x * kThreads + threadIdx.x;
@@ -54,7 +57,7 @@ intersect_general_kernel(const float* __restrict__ rays, const float* __restrict
   const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
 
   float btn = kBig, bdn = 1.0f;
-  int bp = -1;
+  int bp = -1, n_tested = 0;
   const int n_eff = (!any_hit && __syncthreads_and(dead)) ? 0 : nc;
   for (int c = 0; c < n_eff; ++c) {
     if (any_hit && __syncthreads_and(bp >= 0 || dead)) break;
@@ -70,6 +73,7 @@ intersect_general_kernel(const float* __restrict__ rays, const float* __restrict
     const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                              fminf(fmaxf(t0z, t1z), fminf(tmax, best_t)));
     if (!__syncthreads_or(tnear <= tfar)) continue;
+    ++n_tested;
 
     for (int i = threadIdx.x; i < 9 * chunk; i += kThreads) {
       const int k = i / chunk, j = i - k * chunk;
@@ -106,21 +110,23 @@ intersect_general_kernel(const float* __restrict__ rays, const float* __restrict
   }
   out_t[(size_t)b * R + r] = bp >= 0 ? btn / bdn : 0.0f;
   out_prim[(size_t)b * R + r] = bp;
+  if (tested != nullptr) tested[(size_t)b * R + r] = dead ? 0 : n_tested;
 }
 
 }  // namespace
 
 // rays (B, 6, R), tmax (B, R), tri (B, 9, tpad), boxes (B, 6, nc) -> out_t,
-// out_prim (B, R).  R must be a multiple of 256 and tpad == nc * chunk.
+// out_prim and, unless null, tested (B, R).  R must be a multiple of 256 and
+// tpad == nc * chunk.
 extern "C" int ff_intersect_general(const float* rays, const float* tmax, const float* tri,
-                                    const float* boxes, float* out_t, int* out_prim, int B,
-                                    int R, int tpad, int nc, int chunk, float t_min,
-                                    int any_hit, void* stream) {
+                                    const float* boxes, float* out_t, int* out_prim,
+                                    int* tested, int B, int R, int tpad, int nc, int chunk,
+                                    float t_min, int any_hit, void* stream) {
   if (B <= 0 || R <= 0) return 0;
   if (R % kThreads != 0 || tpad != nc * chunk || chunk <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(R / kThreads, B);
   const size_t smem = sizeof(float) * 9 * chunk;
   intersect_general_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      rays, tmax, tri, boxes, out_t, out_prim, R, tpad, nc, chunk, t_min, any_hit);
+      rays, tmax, tri, boxes, out_t, out_prim, tested, R, tpad, nc, chunk, t_min, any_hit);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,9 @@
 // The block votes on each cluster's slab test (__syncthreads_or) and skips
 // it together; any-hit mode leaves the loop once every live ray of the block
 // is blocked or dead (__syncthreads_and).  Dead rays (tmax < 0) never hit.
+// `tested`, unless null, gets each live ray's number of clusters whose faces
+// its block tested (0 for a dead ray), the count that the pair-test bound of
+// a launch is taken from.
 
 #include <cuda_runtime.h>
 
@@ -42,8 +45,9 @@ __global__ void __launch_bounds__(kThreads)
 intersect_shared_culled_kernel(const float* __restrict__ dirs, const float* __restrict__ tmax_in,
                                const float* __restrict__ woop, const float* __restrict__ boxes,
                                const int* __restrict__ lists, const int* __restrict__ counts,
-                               float* __restrict__ out_t, int* __restrict__ out_prim, int R,
-                               int tpad, int nc, int chunk, float t_min, int any_hit) {
+                               float* __restrict__ out_t, int* __restrict__ out_prim,
+                               int* __restrict__ tested, int R, int tpad, int nc, int chunk,
+                               float t_min, int any_hit) {
   extern __shared__ float s_w[];  // [12][chunk]
   const int b = blockIdx.y;
   const int r = blockIdx.x * kThreads + threadIdx.x;
@@ -60,7 +64,7 @@ intersect_shared_culled_kernel(const float* __restrict__ dirs, const float* __re
   const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
 
   float btn = kBig, bdn = 1.0f;
-  int bp = -1;
+  int bp = -1, n_tested = 0;
   for (int ci = 0; ci < n_listed; ++ci) {
     if (any_hit && __syncthreads_and(bp >= 0 || dead)) break;
     const int c = __ldg(list + ci);
@@ -76,6 +80,7 @@ intersect_shared_culled_kernel(const float* __restrict__ dirs, const float* __re
     const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                              fminf(fmaxf(t0z, t1z), fminf(tmax, best_t)));
     if (!__syncthreads_or(tnear <= tfar)) continue;
+    ++n_tested;
 
     for (int i = threadIdx.x; i < 12 * chunk; i += kThreads) {
       const int k = i / chunk, j = i - k * chunk;
@@ -108,24 +113,27 @@ intersect_shared_culled_kernel(const float* __restrict__ dirs, const float* __re
   }
   out_t[(size_t)b * R + r] = bp >= 0 ? btn / bdn : 0.0f;
   out_prim[(size_t)b * R + r] = bp;
+  if (tested != nullptr) tested[(size_t)b * R + r] = dead ? 0 : n_tested;
 }
 
 }  // namespace
 
 // dirs (B, 3, R), tmax (B, R), woop (B, 12, tpad), boxes (B, 6, nc) shifted to
 // the shared origin, lists (B, R / 2048, nc), counts (B, R / 2048) -> out_t,
-// out_prim (B, R).  R must be a multiple of 2048 and tpad == nc * chunk.
+// out_prim and, unless null, tested (B, R).  R must be a multiple of 2048 and
+// tpad == nc * chunk.
 extern "C" int ff_intersect_shared_culled(const float* dirs, const float* tmax,
                                           const float* woop, const float* boxes,
                                           const int* lists, const int* counts, float* out_t,
-                                          int* out_prim, int B, int R, int tpad, int nc,
-                                          int chunk, float t_min, int any_hit, void* stream) {
+                                          int* out_prim, int* tested, int B, int R, int tpad,
+                                          int nc, int chunk, float t_min, int any_hit,
+                                          void* stream) {
   if (B <= 0 || R <= 0) return 0;
   if (R % kRayTile != 0 || tpad != nc * chunk || chunk <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(R / kThreads, B);
   const size_t smem = sizeof(float) * 12 * chunk;
   intersect_shared_culled_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      dirs, tmax, woop, boxes, lists, counts, out_t, out_prim, R, tpad, nc, chunk, t_min,
+      dirs, tmax, woop, boxes, lists, counts, out_t, out_prim, tested, R, tpad, nc, chunk, t_min,
       any_hit);
   return (int)cudaGetLastError();
 }

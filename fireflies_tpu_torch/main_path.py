@@ -5,9 +5,11 @@ The workload of the reference's benchmark (`bench.py::measure`): build
 variant per seed, attach the analytic beam-splat projector of a 12x12
 laser pattern, assemble, path-trace every variant (512x512, spp 1,
 2 bounces, static geometry), and differentiate the mean image with respect
-to the (144, 3) beam directions.
+to the (144, 3) beam directions.  `bench.py` also records the
+reference-realistic shape: `resolution=75` (11538 faces) at spp 4 with
+`coherent_bounce` and `shared_primary`, which runs on the streamed kernels.
 
-    bridge, randomize, beams = build(device)
+    bridge, randomize, beams = build(device, resolution)
     img = render_batch(bridge, randomize, beams, seeds, cfg)      # (B, H, W, 3)
     loss, grad = pattern_step(bridge, randomize, beams, seeds, cfg)
 """
@@ -26,15 +28,29 @@ PROJECTOR_FOV = 30.0
 BEAM_SIGMA = 10.0
 BEAM_TEXTURE = (256, 256)
 
+# The three shapes chip_smoke.py drives, by name: (vocalfold resolution,
+# bench_config settings beside size).  All have 2 bounces and a batch of 16
+# there.  Faces (fold + 288 tube): main 1440, the benchmark default (B1 and
+# B3); mid 5288, the mid-sized route (B1 and B5); reference 11538, the
+# reference-realistic shape (B2 and B4).
+SHAPES = {
+    "main": (24, {}),
+    "mid": (50, {}),
+    "reference": (75, dict(spp=4, coherent_bounce=True, shared_primary=True)),
+}
 
-def bench_config(size: int = 512, spp: int = 1, bounces: int = 2) -> RenderConfig:
+
+def bench_config(size: int = 512, spp: int = 1, bounces: int = 2, coherent_bounce: bool = False,
+                 shared_primary: bool = False) -> RenderConfig:
     return RenderConfig(width=size, height=size, spp=spp, max_bounces=bounces,
-                        static_geometry=True)
+                        static_geometry=True, coherent_bounce=coherent_bounce,
+                        shared_primary=shared_primary)
 
 
-def build(device="cpu", resolution: int = 24):
-    """(bridge, randomize, beams): the vocalfold scene, its randomize
-    function on `device`, and the (144, 3) uniform beam pattern."""
+def build(device="cuda", resolution: int = SHAPES["main"][0]):
+    """(bridge, randomize, beams): the vocalfold scene at `resolution`, its
+    randomize function on `device` (the card unless the caller asks for the
+    CPU), and the (144, 3) uniform beam pattern."""
     scene, kw = scenes.vocalfold(resolution=resolution, n_anim_frames=4)
     bridge = SceneBridge(scene, **kw)
     randomize = scene.compile(device=device)

@@ -1,7 +1,11 @@
-"""Where the main path's device time goes, from torch.profiler's device events.
+"""Where a render path's device time goes, from torch.profiler's device events.
 
-    python -m fireflies_tpu_torch.profile_main [--size 512] [--batch 16]
+    python -m fireflies_tpu_torch.profile_main [--shape main] [--size 512] [--batch 16]
 
+`--shape` picks one of the three shapes chip_smoke.py drives, all with 2
+bounces: `main` (1440 faces, spp 1; B1 and B3, the default), `mid` (5288
+faces, spp 1; B1 and B5) and `reference` (the reference-realistic shape:
+11538 faces, spp 4, coherent bounce, shared primary; B2 and B4).
 Profiles one forward batch (`render_batch` under no_grad) and one
 pattern-step variant, each after a warm-up, and prints for each:
 
@@ -11,7 +15,7 @@ pattern-step variant, each after a warm-up, and prints for each:
   the card (kernels, memcpy, memset), so nothing is counted twice;
 - busy share: busy over the unprofiled wall (busy over the profiled wall in
   brackets, a lower bound);
-- device time by kernel name, largest first, with the two hand-written
+- device time by kernel name, largest first, with the hand-written
   intersection kernels named.
 
 Needs a CUDA device.
@@ -28,9 +32,15 @@ import torch
 
 from fireflies_tpu_torch import main_path
 
-# Substrings of the hand-written kernels' (mangled) names.
-KERNEL_NAMES = {"B1 intersect_shared_culled": "intersect_shared_culled_kernel",
-                "B3 intersect_general": "intersect_general_kernel"}
+# Substrings of the hand-written kernels' names, demangled or mangled.
+KERNEL_NAMES = {
+    "B1 intersect_shared_culled": ("intersect_shared_culled_kernel",),
+    "B3 intersect_general": ("intersect_general_kernel",),
+    "B2 intersect_stream_culled": ("stream_culled_kernel<false>", "stream_culled_kernelILb0E"),
+    "B4 intersect_stream_general_culled": ("stream_culled_kernel<true>",
+                                           "stream_culled_kernelILb1E"),
+    "B5 intersect_general_culled": ("intersect_general_culled_kernel",),
+}
 
 
 def device_events(prof) -> list:
@@ -82,9 +92,11 @@ def report(tag: str, fn, top: int) -> None:
           f"({busy / (wall_prof * 1e3):.4f} of the profiled wall), "
           f"{len(events)} device events", flush=True)
     rows = by_name(events)
-    for label, key in KERNEL_NAMES.items():
-        t, c = (sum(r[i] for r in rows if key in r[0]) for i in (1, 2))
-        print(f"  {label}: {t / 1e3:.3f} ms in {c} launches", flush=True)
+    for label, keys in KERNEL_NAMES.items():
+        mine = [r for r in rows if any(k in r[0] for k in keys)]
+        if mine:
+            t, c = sum(r[1] for r in mine), sum(r[2] for r in mine)
+            print(f"  {label}: {t / 1e3:.3f} ms in {c} launches", flush=True)
     for name, t, c in rows[:top]:
         print(f"  {t / 1e3:10.3f} ms {c:6d}x  {name[:100]}", flush=True)
 
@@ -94,12 +106,14 @@ def main() -> None:
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--shape", choices=sorted(main_path.SHAPES), default="main")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main needs a CUDA device")
     dev = torch.device("cuda", 0)
-    bridge, randomize, beams = main_path.build(dev)
-    cfg = main_path.bench_config(size=args.size)
+    resolution, shape_cfg = main_path.SHAPES[args.shape]
+    bridge, randomize, beams = main_path.build(dev, resolution=resolution)
+    cfg = main_path.bench_config(size=args.size, **shape_cfg)
     seeds = list(range(args.batch))
 
     def forward():
@@ -109,8 +123,8 @@ def main() -> None:
     def step():
         main_path.pattern_step(bridge, randomize, beams, seeds[:1], cfg)
 
-    print(f"{torch.cuda.get_device_name(0)}, {args.size}x{args.size}, batch {args.batch}",
-          flush=True)
+    print(f"{torch.cuda.get_device_name(0)}, {len(bridge._faces)} faces, "
+          f"{args.size}x{args.size}, spp {cfg.spp}, batch {args.batch}", flush=True)
     report(f"forward, batch {args.batch}", forward, args.top)
     report("pattern step, 1 variant", step, args.top)
 

@@ -18,9 +18,10 @@ Tensor = torch.Tensor
 
 
 def generate_uniform_rays(intra_ray_angle: float, num_beams_x: int, num_beams_y: int,
-                          device="cpu") -> Tensor:
+                          device="cuda") -> Tensor:
     """Angle-equispaced grid: direction (tan((i - c) a), tan((j - c) a), -1),
-    normalized; (num_beams_x * num_beams_y, 3)."""
+    normalized; (num_beams_x * num_beams_y, 3) on `device` (the card unless
+    the caller asks for the CPU)."""
     ix = torch.arange(num_beams_x, dtype=torch.float32, device=device) - (num_beams_x - 1) / 2.0
     iy = torch.arange(num_beams_y, dtype=torch.float32, device=device) - (num_beams_y - 1) / 2.0
     tx = torch.tan(ix * intra_ray_angle)

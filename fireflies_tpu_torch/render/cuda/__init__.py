@@ -1,12 +1,21 @@
 """Hand-written CUDA intersection kernels with their plain PyTorch versions
 (counterpart of fireflies_tpu/render/pallas)."""
 
-from fireflies_tpu_torch.render.cuda import intersect_culled, intersect_kernel
+from fireflies_tpu_torch.render.cuda import (
+    intersect_culled,
+    intersect_general_culled,
+    intersect_kernel,
+    intersect_stream,
+)
 
-# Every kernel the main path launches, by the name chip_smoke.py reports.
+# Every kernel a render path launches, by the name chip_smoke.py reports.
 KERNELS = {
     "intersect_shared_culled": intersect_culled.KERNEL,
     "intersect_general": intersect_kernel.KERNEL,
+    "intersect_stream_culled": intersect_stream.KERNEL,
+    "intersect_stream_general_culled": intersect_stream.KERNEL_GENERAL,
+    "intersect_general_culled": intersect_general_culled.KERNEL,
 }
 
-__all__ = ["KERNELS", "intersect_culled", "intersect_kernel"]
+__all__ = ["KERNELS", "intersect_culled", "intersect_general_culled", "intersect_kernel",
+           "intersect_stream"]

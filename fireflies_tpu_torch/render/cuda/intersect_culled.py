@@ -7,7 +7,10 @@ Counterpart of fireflies_tpu/render/pallas/intersect_culled.py
 to start at a light share one origin, so triangles are pre-mapped by the
 Woop transform (`pack_triangles_woop`) and each 2048-ray tile walks only
 the clusters its direction box can reach, front to back
-(`tile_cluster_lists`, plain tensor ops as in the reference).
+(`tile_cluster_lists`, plain tensor ops as in the reference).  The general
+(per-ray origin) counterpart of the lists, `tile_cluster_lists_general`,
+feeds the culled general kernels (`intersect_general_culled`,
+`intersect_stream`).
 
 Layouts, with a leading variant axis B:
   dirs   (B, 3, R/128, 128) f32,  tmax (B, R/128, 128) f32 (tmax < 0 = dead)
@@ -21,15 +24,15 @@ import ctypes
 
 import torch
 
-from fireflies_tpu_torch._build import Kernel, check_cuda, ptr, stream_of
+from fireflies_tpu_torch._build import Kernel, check_cuda, ptr, stream_of, tested_ptr
 from fireflies_tpu_torch.render.cuda.intersect_kernel import (
     _BIG,
     _EPS_BARY,
     FACE_BLOCK,
     LANES,
-    RAY_BLOCK,
     RAY_TILE,
     _carry_min,
+    live_ray_blocks,
     pack_dirs,
     pack_triangles_woop,
 )
@@ -42,7 +45,7 @@ _INF = 3.0e38
 KERNEL = Kernel("ff_intersect_shared_culled", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dirs tmax woop boxes
     ctypes.c_void_p, ctypes.c_void_p,  # lists counts
-    ctypes.c_void_p, ctypes.c_void_p,  # out_t out_prim
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out_t out_prim tested-or-null
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R Tpad NC chunk
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # t_min any_hit stream
 ])
@@ -101,6 +104,49 @@ def tile_cluster_lists(dirs_soa: Tensor, boxes: Tensor, t_min: float = 0.0,
     return lists.contiguous(), counts.contiguous()
 
 
+def tile_cluster_lists_general(rays_soa: Tensor, boxes: Tensor, t_min: float = 0.0,
+                               tmax_tiles: Tensor | None = None):
+    """Per-tile cluster culling and front-to-back order for general rays.
+
+    rays_soa (B, 6, R/128, 128) packed o/d in tile-major order, boxes
+    (B, 6, NC) world-space cluster AABBs.  The interval slab test widens a
+    cluster's box by the tile's origin box ([bl - omax, bh - omin]); the
+    clusters that pass are sorted by distance from the centre of the
+    tile's origin box, so a kernel's best-t clip prunes far clusters once
+    near hits land.  With `tmax_tiles`, dead rays (tmax < 0) leave both the
+    origin and the direction box, and all-dead tiles get count 0.  The
+    reference's sub-tile split (FF_CULL_SUBTILES) is not ported: one box
+    per tile, its default.  Returns (lists (B, T, NC) int32, counts
+    (B, T, 1) int32).
+    """
+    b = rays_soa.shape[0]
+    t = rays_soa.shape[2] * LANES // RAY_TILE
+    r_tiles = rays_soa.reshape(b, 6, t, RAY_TILE)
+    if tmax_tiles is not None:
+        alive = (tmax_tiles >= 0.0).reshape(b, 1, t, RAY_TILE)
+        lo = torch.where(alive, r_tiles, _INF).amin(dim=-1)  # (B, 6, T)
+        hi = torch.where(alive, r_tiles, -_INF).amax(dim=-1)
+        galive = alive.any(dim=-1)[:, 0]  # (B, T)
+    else:
+        lo = r_tiles.amin(dim=-1)
+        hi = r_tiles.amax(dim=-1)
+        galive = None
+    ol, dl, oh, dh = lo[:, :3], lo[:, 3:], hi[:, :3], hi[:, 3:]
+    bl = boxes[:, 0:3, None, :] - oh[..., None]  # (B, 3, T, NC), widened
+    bh = boxes[:, 3:6, None, :] - ol[..., None]
+    hit = _interval_slab_hit(dl[..., None], dh[..., None], bl, bh, t_min)  # (B, T, NC)
+    if galive is not None:
+        hit = hit & galive[..., None]
+    center = 0.5 * (boxes[:, 0:3] + boxes[:, 3:6])  # (B, 3, NC)
+    oc = 0.5 * (ol + oh)  # (B, 3, T); 0 for an all-dead tile
+    diff = center[:, :, None, :] - oc[..., None]  # (B, 3, T, NC)
+    dist2 = torch.sum(diff * diff, dim=1)  # (B, T, NC)
+    sort_key = torch.where(hit, dist2, _INF)
+    lists = torch.argsort(sort_key, dim=-1, stable=True).to(torch.int32)
+    counts = hit.sum(dim=-1, dtype=torch.int32)[..., None]
+    return lists.contiguous(), counts.contiguous()
+
+
 def listed_mask(lists: Tensor, counts: Tensor) -> Tensor:
     """(B, T, NC) bool: cluster c is on tile t's list."""
     nc = lists.shape[-1]
@@ -109,63 +155,88 @@ def listed_mask(lists: Tensor, counts: Tensor) -> Tensor:
     return mask.scatter_(-1, lists.long(), pos < counts)
 
 
+def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: Tensor,
+                    t_min: float, chunk: int):
+    """The division-free Woop test of the culled kernels as a blocked
+    broadcast over (rays, faces), restricted to the clusters of `chunk`
+    faces on each ray's tile list (`listed`, (B, T, NC) bool); closest hit
+    by argmin.  `rays_soa` is (B, 3, R/128, 128) directions from a shared
+    origin, with woop rows 9-11 holding o' = W (o - v0), or (B, 6, R/128,
+    128) origins and directions, with rows 9-11 holding W v0 and
+    o'_k = W_k . o - (W v0)_k formed per pair.  Returns (t, prim), each
+    (B, R); prim = -1 on a miss."""
+    b, n_comp = rays_soa.shape[:2]
+    general = n_comp == 6
+    r = tmax_tiles[0].numel()
+    rays = rays_soa.reshape(b, n_comp, r)
+    tmax = tmax_tiles.reshape(b, r)
+    out_t = torch.zeros(b, r, dtype=torch.float32, device=rays.device)
+    out_p = torch.full((b, r), -1, dtype=torch.int32, device=rays.device)
+    n_face = woop.shape[2]
+    face_cluster = torch.arange(n_face, device=rays.device) // chunk
+    for bi, idx in live_ray_blocks(tmax):
+        ray = [rays[bi, k, idx, None] for k in range(n_comp)]
+        dx, dy, dz = ray[-3:]
+        tm = tmax[bi, idx, None]
+        tile = idx // RAY_TILE
+        best_t = torch.full_like(tm[:, 0], _BIG)
+        best_p = torch.full(best_t.shape, -1, dtype=torch.int32, device=best_t.device)
+        for f0 in range(0, n_face, FACE_BLOCK):
+            on_list = listed[bi][tile[:, None], face_cluster[None, f0:f0 + FACE_BLOCK]]
+            if not bool(on_list.any()):
+                continue  # no ray of the block lists these faces
+            (w00, w01, w02, w10, w11, w12, w20, w21, w22, opx, opy, opz) = (
+                woop[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(12))
+            if general:
+                ox, oy, oz = ray[:3]
+                opx = w00 * ox + w01 * oy + w02 * oz - opx
+                opy = w10 * ox + w11 * oy + w12 * oz - opy
+                opz = w20 * ox + w21 * oy + w22 * oz - opz
+            dpx = w00 * dx + w01 * dy + w02 * dz
+            dpy = w10 * dx + w11 * dy + w12 * dz
+            dpz = w20 * dx + w21 * dy + w22 * dz
+            sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
+            dn = dpz * sgn
+            tn = -opz * sgn
+            u_n = opx * dn + tn * dpx
+            v_n = opy * dn + tn * dpy
+            ok = (on_list & (dn > 1e-12) & (u_n >= -_EPS_BARY * dn)
+                  & (v_n >= -_EPS_BARY * dn) & (u_n + v_n <= (1.0 + _EPS_BARY) * dn)
+                  & (tn > t_min * dn) & (tn < tm * dn))
+            t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
+            best_t, best_p = _carry_min(t, f0, best_t, best_p)
+        out_t[bi, idx] = torch.where(best_p >= 0, best_t, 0.0)
+        out_p[bi, idx] = best_p
+    return out_t, out_p
+
+
 def intersect_culled_packed_plain(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor,
                                   boxes: Tensor, lists: Tensor, counts: Tensor,
                                   t_min: float, any_hit: bool = False, chunk: int = CHUNK):
-    """Plain PyTorch version of the shared-origin kernel: the division-free
-    Woop test of `csrc/intersect_shared_culled.cu` as a blocked broadcast
-    over (rays, faces), restricted to the clusters on each ray's tile list;
-    closest hit by argmin (any-hit returns it too).  Returns (t, prim)
-    shaped like `tmax_tiles`; prim = -1 on a miss."""
+    """Plain PyTorch version of the shared-origin kernel (`woop_hits_plain`
+    over the tile lists); any-hit returns the closest hit too.  Returns
+    (t, prim) shaped like `tmax_tiles`; prim = -1 on a miss."""
     del any_hit, boxes  # the AABB skip is an optimisation, not semantics
-    b = dirs_soa.shape[0]
-    r = tmax_tiles[0].numel()
-    dirs = dirs_soa.reshape(b, 3, r)
-    tmax = tmax_tiles.reshape(b, r)
-    listed = listed_mask(lists, counts)
-    out_t = torch.empty(b, r, dtype=torch.float32, device=dirs.device)
-    out_p = torch.empty(b, r, dtype=torch.int32, device=dirs.device)
-    n_face = woop.shape[2]
-    face_cluster = torch.arange(n_face, device=dirs.device) // chunk
-    for bi in range(b):
-        for r0 in range(0, r, RAY_BLOCK):
-            dx, dy, dz = (dirs[bi, k, r0:r0 + RAY_BLOCK, None] for k in range(3))
-            tm = tmax[bi, r0:r0 + RAY_BLOCK, None]
-            tile = torch.arange(r0, r0 + tm.shape[0], device=dirs.device) // RAY_TILE
-            best_t = torch.full_like(tm[:, 0], _BIG)
-            best_p = torch.full(best_t.shape, -1, dtype=torch.int32, device=best_t.device)
-            for f0 in range(0, n_face, FACE_BLOCK):
-                (w00, w01, w02, w10, w11, w12, w20, w21, w22, opx, opy, opz) = (
-                    woop[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(12))
-                on_list = listed[bi][tile[:, None], face_cluster[None, f0:f0 + FACE_BLOCK]]
-                dpx = w00 * dx + w01 * dy + w02 * dz
-                dpy = w10 * dx + w11 * dy + w12 * dz
-                dpz = w20 * dx + w21 * dy + w22 * dz
-                sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
-                dn = dpz * sgn
-                tn = -opz * sgn
-                u_n = opx * dn + tn * dpx
-                v_n = opy * dn + tn * dpy
-                ok = (on_list & (dn > 1e-12) & (u_n >= -_EPS_BARY * dn)
-                      & (v_n >= -_EPS_BARY * dn) & (u_n + v_n <= (1.0 + _EPS_BARY) * dn)
-                      & (tn > t_min * dn) & (tn < tm * dn))
-                t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
-                best_t, best_p = _carry_min(t, f0, best_t, best_p)
-            out_t[bi, r0:r0 + RAY_BLOCK] = torch.where(best_p >= 0, best_t, 0.0)
-            out_p[bi, r0:r0 + RAY_BLOCK] = best_p
-    return out_t.reshape(tmax_tiles.shape), out_p.reshape(tmax_tiles.shape)
+    t, prim = woop_hits_plain(dirs_soa, tmax_tiles, woop, listed_mask(lists, counts), t_min,
+                              chunk)
+    return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
 
 
 def intersect_culled_packed(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, boxes: Tensor,
                             t_min: float, any_hit: bool = False, chunk: int = CHUNK,
-                            lists: Tensor | None = None, counts: Tensor | None = None):
+                            lists: Tensor | None = None, counts: Tensor | None = None,
+                            tested: Tensor | None = None):
     """Shared-origin closest/any-hit over packed inputs: builds the tile
     lists unless given, then CPU tensors take the plain version and CUDA
     tensors launch `csrc/intersect_shared_culled.cu` (one thread per ray,
-    each block on its 2048-ray tile's list, grid (R/256, B)) or raise."""
+    each block on its 2048-ray tile's list, grid (R/256, B)) or raise.
+    `tested` (see `_build.tested_ptr`) receives the kernel's per-ray count
+    of tested clusters."""
     if lists is None or counts is None:
         lists, counts = tile_cluster_lists(dirs_soa, boxes, t_min=t_min, tmax_tiles=tmax_tiles)
     if dirs_soa.device.type == "cpu":
+        if tested is not None:
+            raise ValueError("tested: only the CUDA kernel counts tested clusters")
         return intersect_culled_packed_plain(dirs_soa, tmax_tiles, woop, boxes, lists, counts,
                                              t_min, any_hit, chunk)
     dev = dirs_soa.device
@@ -187,7 +258,8 @@ def intersect_culled_packed(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, 
     out_p = torch.empty(b, rows, LANES, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         KERNEL.launch(ptr(dirs_soa), ptr(tmax_tiles), ptr(woop), ptr(boxes), ptr(lists),
-                      ptr(counts), ptr(out_t), ptr(out_p), b, r, n_face, nc, chunk,
+                      ptr(counts), ptr(out_t), ptr(out_p),
+                      tested_ptr(tested, tmax_tiles.shape, dev), b, r, n_face, nc, chunk,
                       float(t_min), int(any_hit), stream_of(dev))
     return out_t, out_p
 

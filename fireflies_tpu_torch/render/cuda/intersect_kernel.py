@@ -21,7 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
-from fireflies_tpu_torch._build import Kernel, check_cuda, ptr, stream_of
+from fireflies_tpu_torch._build import Kernel, check_cuda, ptr, stream_of, tested_ptr
 
 Tensor = torch.Tensor
 
@@ -41,7 +41,7 @@ FACE_BLOCK = 256
 
 KERNEL = Kernel("ff_intersect_general", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # rays tmax tri boxes
-    ctypes.c_void_p, ctypes.c_void_p,  # out_t out_prim
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out_t out_prim tested-or-null
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R Tpad NC chunk
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # t_min any_hit stream
 ])
@@ -181,53 +181,81 @@ def _carry_min(t: Tensor, base: int, best_t: Tensor, best_p: Tensor):
     return torch.where(better, cmin, best_t), torch.where(better, carg.to(torch.int32) + base, best_p)
 
 
-def intersect_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: Tensor,
-                           t_min: float, any_hit: bool = False, chunk: int = CHUNK):
-    """Plain PyTorch version of the general-origin kernel: the rational
-    Möller-Trumbore test of `csrc/intersect_general.cu` as a blocked
-    broadcast over (rays, faces), closest hit by argmin.  Any-hit returns
-    the closest hit too (its `prim >= 0` mask is what any-hit means).
-    Returns (t, prim) shaped like `tmax_tiles`; prim = -1 on a miss."""
-    del any_hit, boxes, chunk  # the AABB skip is an optimisation, not semantics
+def live_ray_blocks(tmax: Tensor):
+    """(variant, ray indices) blocks of at most RAY_BLOCK live rays
+    (tmax >= 0) of a (B, R) tmax: the plain versions test only these, since
+    a dead ray never hits."""
+    for bi in range(tmax.shape[0]):
+        live = torch.nonzero(tmax[bi] >= 0.0).squeeze(1)
+        for s0 in range(0, live.numel(), RAY_BLOCK):
+            yield bi, live[s0:s0 + RAY_BLOCK]
+
+
+def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: float,
+                  listed: Tensor | None = None, chunk: int = CHUNK):
+    """The rational Möller-Trumbore test of `csrc/intersect_general.cu` as
+    a blocked broadcast over (rays, faces), closest hit by argmin.  With
+    `listed` ((B, T, NC) bool, see `intersect_culled.listed_mask`) a ray
+    tests only the clusters of `chunk` faces on its 2048-ray tile's list.
+    Returns (t, prim), each (B, R); prim = -1 on a miss."""
     b = rays_soa.shape[0]
     r = tmax_tiles[0].numel()
     rays = rays_soa.reshape(b, 6, r)
     tmax = tmax_tiles.reshape(b, r)
-    out_t = torch.empty(b, r, dtype=torch.float32, device=rays.device)
-    out_p = torch.empty(b, r, dtype=torch.int32, device=rays.device)
+    out_t = torch.zeros(b, r, dtype=torch.float32, device=rays.device)
+    out_p = torch.full((b, r), -1, dtype=torch.int32, device=rays.device)
     n_face = tri.shape[2]
-    for bi in range(b):
-        for r0 in range(0, r, RAY_BLOCK):
-            ox, oy, oz, dx, dy, dz = (rays[bi, k, r0:r0 + RAY_BLOCK, None] for k in range(6))
-            tm = tmax[bi, r0:r0 + RAY_BLOCK, None]
-            best_t = torch.full_like(tm[:, 0], _BIG)
-            best_p = torch.full(best_t.shape, -1, dtype=torch.int32, device=best_t.device)
-            for f0 in range(0, n_face, FACE_BLOCK):
-                (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = (
-                    tri[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(9))
-                px = dy * e2z - dz * e2y
-                py = dz * e2x - dx * e2z
-                pz = dx * e2y - dy * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                tx = ox - v0x
-                ty = oy - v0y
-                tz = oz - v0z
-                qx = ty * e1z - tz * e1y
-                qy = tz * e1x - tx * e1z
-                qz = tx * e1y - ty * e1x
-                sgn = torch.where(det >= 0.0, 1.0, -1.0)
-                dn = det * sgn
-                un = (tx * px + ty * py + tz * pz) * sgn
-                vn = (dx * qx + dy * qy + dz * qz) * sgn
-                tn = (e2x * qx + e2y * qy + e2z * qz) * sgn
-                eb = _EPS_BARY * dn
-                ok = ((dn >= _EPS_DET) & (un >= -eb) & (vn >= -eb) & (un + vn <= dn + eb)
-                      & (tn > t_min * dn) & (tn < tm * dn))
-                t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
-                best_t, best_p = _carry_min(t, f0, best_t, best_p)
-            out_t[bi, r0:r0 + RAY_BLOCK] = torch.where(best_p >= 0, best_t, 0.0)
-            out_p[bi, r0:r0 + RAY_BLOCK] = best_p
-    return out_t.reshape(tmax_tiles.shape), out_p.reshape(tmax_tiles.shape)
+    face_cluster = torch.arange(n_face, device=rays.device) // chunk
+    for bi, idx in live_ray_blocks(tmax):
+        ox, oy, oz, dx, dy, dz = (rays[bi, k, idx, None] for k in range(6))
+        tm = tmax[bi, idx, None]
+        tile = idx // RAY_TILE
+        best_t = torch.full_like(tm[:, 0], _BIG)
+        best_p = torch.full(best_t.shape, -1, dtype=torch.int32, device=best_t.device)
+        for f0 in range(0, n_face, FACE_BLOCK):
+            on_list = None
+            if listed is not None:
+                on_list = listed[bi][tile[:, None], face_cluster[None, f0:f0 + FACE_BLOCK]]
+                if not bool(on_list.any()):
+                    continue  # no ray of the block lists these faces
+            (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = (
+                tri[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(9))
+            px = dy * e2z - dz * e2y
+            py = dz * e2x - dx * e2z
+            pz = dx * e2y - dy * e2x
+            det = e1x * px + e1y * py + e1z * pz
+            tx = ox - v0x
+            ty = oy - v0y
+            tz = oz - v0z
+            qx = ty * e1z - tz * e1y
+            qy = tz * e1x - tx * e1z
+            qz = tx * e1y - ty * e1x
+            sgn = torch.where(det >= 0.0, 1.0, -1.0)
+            dn = det * sgn
+            un = (tx * px + ty * py + tz * pz) * sgn
+            vn = (dx * qx + dy * qy + dz * qz) * sgn
+            tn = (e2x * qx + e2y * qy + e2z * qz) * sgn
+            eb = _EPS_BARY * dn
+            ok = ((dn >= _EPS_DET) & (un >= -eb) & (vn >= -eb) & (un + vn <= dn + eb)
+                  & (tn > t_min * dn) & (tn < tm * dn))
+            if on_list is not None:
+                ok &= on_list
+            t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
+            best_t, best_p = _carry_min(t, f0, best_t, best_p)
+        out_t[bi, idx] = torch.where(best_p >= 0, best_t, 0.0)
+        out_p[bi, idx] = best_p
+    return out_t, out_p
+
+
+def intersect_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: Tensor,
+                           t_min: float, any_hit: bool = False, chunk: int = CHUNK):
+    """Plain PyTorch version of the general-origin kernel (`mt_hits_plain`
+    over every face).  Any-hit returns the closest hit too (its
+    `prim >= 0` mask is what any-hit means).  Returns (t, prim) shaped like
+    `tmax_tiles`; prim = -1 on a miss."""
+    del any_hit, boxes, chunk  # the AABB skip is an optimisation, not semantics
+    t, prim = mt_hits_plain(rays_soa, tmax_tiles, tri, t_min)
+    return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -236,11 +264,16 @@ def intersect_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, bo
 
 
 def intersect_packed(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: Tensor,
-                     t_min: float, any_hit: bool = False, chunk: int = CHUNK):
+                     t_min: float, any_hit: bool = False, chunk: int = CHUNK,
+                     tested: Tensor | None = None):
     """General-origin closest/any-hit over packed inputs.  CPU tensors take
     the plain version; CUDA tensors launch `csrc/intersect_general.cu`
-    (one thread per ray, grid (R/256, B)) or raise."""
+    (one thread per ray, grid (R/256, B)) or raise.  `tested` (see
+    `_build.tested_ptr`) receives the kernel's per-ray count of tested
+    clusters."""
     if rays_soa.device.type == "cpu":
+        if tested is not None:
+            raise ValueError("tested: only the CUDA kernel counts tested clusters")
         return intersect_packed_plain(rays_soa, tmax_tiles, tri, boxes, t_min, any_hit, chunk)
     dev = rays_soa.device
     b, _, rows, _ = rays_soa.shape
@@ -258,8 +291,8 @@ def intersect_packed(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: T
     out_p = torch.empty(b, rows, LANES, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         KERNEL.launch(ptr(rays_soa), ptr(tmax_tiles), ptr(tri), ptr(boxes), ptr(out_t),
-                      ptr(out_p), b, r, n_face, nc, chunk, float(t_min), int(any_hit),
-                      stream_of(dev))
+                      ptr(out_p), tested_ptr(tested, tmax_tiles.shape, dev), b, r, n_face, nc,
+                      chunk, float(t_min), int(any_hit), stream_of(dev))
     return out_t, out_p
 
 

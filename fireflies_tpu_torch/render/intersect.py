@@ -1,27 +1,49 @@
 """Ray/triangle intersection front end (port of
 fireflies_tpu/render/intersect.py).
 
-`closest_hit` and `occluded_any` dispatch by ray kind to the kernel
-wrappers of `render/cuda`: rays sharing one origin per variant
-(`shared_origin` given: camera rays, shadow rays reversed to start at a
-light) go to the tile-culled Woop kernel, all others to the general
-Möller-Trumbore kernel.  Each wrapper runs its plain PyTorch version on CPU
-tensors and its CUDA kernel on CUDA tensors.  `intersect_brute` and
+`closest_hit` and `occluded_any` dispatch by ray kind and face count to the
+kernel wrappers of `render/cuda`, with the reference's thresholds:
+
+  faces                          shared origin      per-ray origins
+  < GEN_CULL_MIN_FACES           B1 shared culled   B3 general
+  GEN_CULL_MIN_FACES .. RESIDENT_MAX_FACES
+                                 B1 shared culled   B5 general culled (chunk 64)
+  > RESIDENT_MAX_FACES           B2 streamed culled B4 streamed general culled
+
+Rays sharing one origin per variant (`shared_origin` given) are camera
+rays and shadow rays reversed to start at a light.  Above
+RESIDENT_MAX_FACES a closest-hit call with `emit_attrs` takes the hit's
+plane normal and material id from the kernel; the other routes gather
+them (`_attrs_fallback`).  Each wrapper runs its plain PyTorch version on
+CPU tensors and its CUDA kernel on CUDA tensors.  `intersect_brute` and
 `occluded` are the independent reference scans.
 
 Traversal is detached: the returned (t, prim) carry no gradient; the
 static-geometry path tracer takes positions from t along the (detached)
-ray and normals/material ids from `_attrs_fallback`.
+ray and normals/material ids from the Hit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fireflies_tpu_torch.render.cuda import intersect_culled, intersect_kernel
+from fireflies_tpu_torch.render.cuda import (
+    intersect_culled,
+    intersect_general_culled,
+    intersect_kernel,
+    intersect_stream,
+)
 from fireflies_tpu_torch.render.types import Geometry, Hit
 
 Tensor = torch.Tensor
+
+# The reference's face-count thresholds (PALLAS_MAX_TRIS and
+# _GEN_CULL_MIN_FACES in fireflies_tpu/render/intersect.py): above
+# RESIDENT_MAX_FACES every ray cast goes to the streamed kernels; from
+# GEN_CULL_MIN_FACES up to it, per-ray-origin rays go to the culled general
+# kernel.
+RESIDENT_MAX_FACES = 8192
+GEN_CULL_MIN_FACES = 4096
 
 _EPS_DET = 1e-9
 _EPS_BARY = 1e-6
@@ -125,26 +147,57 @@ def _check_backend(backend: str) -> None:
         raise ValueError(f"backend={backend!r}: only 'auto' is supported")
 
 
+def _general(o: Tensor, d: Tensor, geometry: Geometry, t_min: float, t_max, any_hit: bool,
+             chunk: int):
+    """Per-ray-origin (t, prim) on the resident kernels: B5 from
+    GEN_CULL_MIN_FACES faces, else B3."""
+    if geometry.faces.shape[0] >= GEN_CULL_MIN_FACES:
+        return intersect_general_culled.intersect_cuda_general_culled(
+            o, d, geometry.vertices, geometry.faces, t_min=t_min, t_max=t_max, any_hit=any_hit)
+    return intersect_kernel.intersect_cuda(o, d, geometry.vertices, geometry.faces, t_min=t_min,
+                                           t_max=t_max, any_hit=any_hit, chunk=chunk)
+
+
+def _streamed(o: Tensor, d: Tensor, geometry: Geometry, t_min: float, t_max, any_hit: bool,
+              shared_origin: Tensor | None, face_mat: Tensor | None):
+    """(t, prim[, nx, ny, nz, mat]) on the streamed kernels (B2, B4)."""
+    if shared_origin is not None:
+        return intersect_stream.intersect_cuda_streamed_culled(
+            _shared(shared_origin, d), d, geometry.vertices, geometry.faces, t_min=t_min,
+            t_max=t_max, any_hit=any_hit, face_mat=face_mat)
+    return intersect_stream.intersect_cuda_streamed_general_culled(
+        o, d, geometry.vertices, geometry.faces, t_min=t_min, t_max=t_max, any_hit=any_hit,
+        face_mat=face_mat)
+
+
 def closest_hit(o: Tensor, d: Tensor, geometry: Geometry, t_min: float = 1e-4, t_max=1e30,
                 tri_chunk: int = 512, backend: str = "auto",
                 shared_origin: Tensor | None = None, emit_attrs: bool = False,
                 shared_chunk: int = intersect_culled.CHUNK,
                 general_chunk: int = intersect_kernel.CHUNK) -> Hit:
-    """Closest-hit dispatcher.  o, d: (B, N, 3); `shared_origin` (B, 3) when
-    every ray of a variant starts there.  `backend` must be "auto" (else
-    ValueError); `tri_chunk` is kept for signature parity and sizes
-    nothing, since the chunk sizes of the two kernels are `shared_chunk` and
-    `general_chunk`.  With emit_attrs the Hit carries nx/ny/nz/mat."""
+    """Closest-hit dispatcher (see the module docstring for the routes).
+    o, d: (B, N, 3); `shared_origin` (B, 3) when every ray of a variant
+    starts there.  `backend` must be "auto" (else ValueError); `tri_chunk`
+    is kept for signature parity and sizes nothing; `shared_chunk` and
+    `general_chunk` size B1's and B3's clusters (B2, B4 and B5 have fixed
+    ones).  With emit_attrs the Hit carries nx/ny/nz/mat."""
     del tri_chunk
     _check_backend(backend)
+    if geometry.faces.shape[0] > RESIDENT_MAX_FACES:
+        t, prim, *attrs = _streamed(o, d, geometry, t_min, t_max, False, shared_origin,
+                                    geometry.face_mat if emit_attrs else None)
+        zeros = torch.zeros_like(t)
+        hit = Hit(t=t, prim=prim, u=zeros, v=zeros, valid=prim >= 0)
+        if attrs:
+            nx, ny, nz, mat = attrs
+            return hit.replace(nx=nx, ny=ny, nz=nz, mat=mat)
+        return hit
     if shared_origin is not None:
         t, prim = intersect_culled.intersect_cuda_shared_culled(
             _shared(shared_origin, d), d, geometry.vertices, geometry.faces,
             t_min=t_min, t_max=t_max, chunk=shared_chunk)
     else:
-        t, prim = intersect_kernel.intersect_cuda(
-            o, d, geometry.vertices, geometry.faces, t_min=t_min, t_max=t_max,
-            chunk=general_chunk)
+        t, prim = _general(o, d, geometry, t_min, t_max, False, general_chunk)
     zeros = torch.zeros_like(t)
     hit = Hit(t=t, prim=prim, u=zeros, v=zeros, valid=prim >= 0)
     return _attrs_fallback(hit, geometry) if emit_attrs else hit
@@ -159,12 +212,12 @@ def occluded_any(o: Tensor, d: Tensor, geometry: Geometry, t_min: float = 1e-4, 
     bool."""
     del tri_chunk
     _check_backend(backend)
-    if shared_origin is not None:
+    if geometry.faces.shape[0] > RESIDENT_MAX_FACES:
+        _, prim = _streamed(o, d, geometry, t_min, t_max, True, shared_origin, None)
+    elif shared_origin is not None:
         _, prim = intersect_culled.intersect_cuda_shared_culled(
             _shared(shared_origin, d), d, geometry.vertices, geometry.faces,
             t_min=t_min, t_max=t_max, any_hit=True, chunk=shared_chunk)
     else:
-        _, prim = intersect_kernel.intersect_cuda(
-            o, d, geometry.vertices, geometry.faces, t_min=t_min, t_max=t_max,
-            any_hit=True, chunk=general_chunk)
+        _, prim = _general(o, d, geometry, t_min, t_max, True, general_chunk)
     return prim >= 0

@@ -8,10 +8,12 @@ importance sampling drives the bounces.  Traversal is detached and
 shading differentiable, so gradients reach the projector's beam pattern.
 
 Ported: the static-geometry route (positions from t along the ray,
-normals and material ids from the hit face), delta-emitter NEE with
-dead-ray gating, the default bounce sampler, and the spp loop.  Not ported
-yet: `_film_render_shared`, reparameterization, `ray_chunk`, envmap and
-area-light NEE, textures and smooth normals (these raise).
+normals and material ids from the hit), delta-emitter NEE with dead-ray
+gating, the default and the tile-coherent bounce sampler
+(`coherent_bounce`), the spp loop, and the shared first vertex
+(`shared_primary`, `_film_render_shared`).  Not ported yet:
+reparameterization, `ray_chunk`, envmap and area-light NEE, textures and
+smooth normals (these raise).
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 
 from fireflies_tpu_torch.render import bsdf as bsdf_mod
 from fireflies_tpu_torch.render import lights as lights_mod
+from fireflies_tpu_torch.render.cuda.intersect_kernel import RAY_TILE
 from fireflies_tpu_torch.render.intersect import closest_hit, occluded_any
-from fireflies_tpu_torch.render.rays import camera_rays_tiled, unpermute_rows
+from fireflies_tpu_torch.render.rays import camera_rays_tiled, uniform, unpermute_rows
 from fireflies_tpu_torch.render.types import RenderConfig, RenderScene
 from fireflies_tpu_torch.render.vec3 import Vec3, from_array, splat
 
@@ -43,11 +46,28 @@ def _check_supported(scene: RenderScene, config: RenderConfig) -> None:
         raise NotImplementedError("soft-shadow emitter apertures are not ported")
 
 
-def _sample_bounce(gens, shade: dict, throughput: Vec3, active: Tensor):
+def coherent_uniforms(gens, n_rays: int, device) -> tuple[Tensor, ...]:
+    """The bounce draws of `coherent_bounce`: each variant draws one set of
+    5 uniforms (u_sel, u1, u2, u3, u4) per 2048-ray tile from its own
+    generator, repeated over the tile's rays; returns 5 (B, n_rays)
+    tensors.  Each ray's marginal stays U(0, 1), so the estimate stays
+    unbiased, while a tile's bounce directions share one draw and its
+    direction box narrows to the tile's normal spread, which the culled
+    bounce kernels prune on.  The port's `sample_v` reads the first three
+    (u3, u4 serve lobes that are not ported)."""
+    n_tiles = -(-n_rays // RAY_TILE)
+    u = uniform(gens, (5, n_tiles), device).repeat_interleave(RAY_TILE, dim=-1)[..., :n_rays]
+    return tuple(u[:, k] for k in range(5))
+
+
+def _sample_bounce(gens, shade: dict, throughput: Vec3, active: Tensor,
+                   coherent: bool = False):
     """BSDF-sample the next path segment from a shaded vertex; returns
-    (o, d, o_v, d_v, throughput, active)."""
+    (o, d, o_v, d_v, throughput, active).  `coherent`: per-tile shared
+    draws (`coherent_uniforms`) instead of one draw per ray."""
     n, ns, p = shade["n"], shade["ns"], shade["p"]
-    wi, pdf, f = bsdf_mod.sample_v(shade["params"], ns, shade["wo"], gens)
+    uniforms = coherent_uniforms(gens, n.x.shape[-1], n.x.device) if coherent else None
+    wi, pdf, f = bsdf_mod.sample_v(shade["params"], ns, shade["wo"], gens, uniforms=uniforms)
     cos_i_s = n.dot(wi)
     cos_i = ns.dot(wi).abs()
     weight = torch.where(pdf > 1e-6, cos_i / torch.clamp(pdf, min=1e-6), 0.0)
@@ -59,12 +79,22 @@ def _sample_bounce(gens, shade: dict, throughput: Vec3, active: Tensor):
 
 
 def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderConfig,
-               primary_origin: Tensor | None = None) -> Tensor:
+               primary_origin: Tensor | None = None, v0_capture: dict | None = None,
+               resume: dict | None = None) -> Tensor:
     """Path-trace radiance for rays o, d (B, N, 3); returns (B, N, 3).
 
     `gens`: one torch.Generator per variant for the bounce draws.
     `primary_origin` (B, 3) marks the first bounce's rays as sharing that
     origin (the camera), which selects the shared-origin kernel.
+
+    Shared-primary plumbing (see _film_render_shared):
+      * `v0_capture` (a dict): stop once vertex 0 is shaded (its emission,
+        NEE and escape are in the returned radiance) and store the state
+        that resamples the first bounce: `shade` for _sample_bounce, and
+        `active`.
+      * `resume`: skip vertex 0 and start the bounce loop at bounce 1 from
+        the given ray state (o_v, d_v, throughput, active), as
+        _sample_bounce produces it.
     """
     _check_supported(scene, config)
     b, n_rays, _ = o.shape
@@ -79,8 +109,14 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
     o_v, d_v = from_array(o), from_array(d)
     geo = scene.geometry
     positions = lights_mod.emitter_positions(scene.lights, scene.projector)
+    start_bounce = 0
+    if resume is not None:
+        o_v, d_v = resume["o_v"], resume["d_v"]
+        o, d = o_v.to_array().detach(), d_v.to_array().detach()
+        throughput, active = resume["throughput"], resume["active"]
+        start_bounce = 1
 
-    for bounce in range(config.max_bounces):
+    for bounce in range(start_bounce, config.max_bounces):
         # Dead-ray gating: retired paths carry t_max = -1, which the kernels
         # skip (all-dead tiles skip their cluster loops).
         if bounce == 0:
@@ -124,9 +160,13 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
             cos_i = ns.dot(wi_l).abs()
             radiance = radiance + throughput * f * rad_l * torch.where(lit & ~blocked, cos_i, 0.0)
 
+        shade = dict(params=params, ns=ns, n=n, wo=wo, p=p)
+        if v0_capture is not None and bounce == 0:
+            v0_capture.update(shade=shade, active=active)
+            return radiance.to_array()
         if bounce + 1 < config.max_bounces:
             o, d, o_v, d_v, throughput, active = _sample_bounce(
-                gens, dict(params=params, ns=ns, n=n, wo=wo, p=p), throughput, active)
+                gens, shade, throughput, active, config.coherent_bounce)
             o, d = o.detach(), d.detach()
     return radiance.to_array()
 
@@ -139,10 +179,45 @@ def _film_render(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
     return unpermute_rows(radiance, inv_perm, config.width, config.height)
 
 
+def _film_render_shared(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
+    """All spp samples with the first path vertex shared; (B, H*W, 3) in
+    row-major pixel order.
+
+    Vertex 0 (the primary hit, its attributes and every delta-emitter NEE
+    with its shadow rays) does not depend on the sample for delta emitters
+    under a fixed camera, so it is traced once (`v0_capture`); each spp
+    sample then resamples the first bounce (_sample_bounce) and traces the
+    remaining vertices (`resume`).  One pixel jitter is shared by all
+    samples, so spp averages the bounce randomness only; each pixel's
+    estimate stays unbiased.
+    """
+    o, d, inv_perm = camera_rays_tiled(scene.camera, config.width, config.height, gens=gens)
+    cap: dict = {}
+    total = trace_rays(scene, o, d, gens, config, primary_origin=scene.camera.to_world[:, :3, 3],
+                       v0_capture=cap)
+    if config.max_bounces > 1:
+        ones = torch.ones_like(cap["active"], dtype=torch.float32)
+        rest = None
+        for _ in range(config.spp):
+            o2, d2, o_v2, d_v2, thr, act = _sample_bounce(
+                gens, cap["shade"], Vec3(ones, ones, ones), cap["active"],
+                config.coherent_bounce)
+            sample = trace_rays(scene, o2, d2, gens, config,
+                                resume=dict(o_v=o_v2, d_v=d_v2, throughput=thr, active=act))
+            rest = sample if rest is None else rest + sample
+        total = total + rest / config.spp
+    return unpermute_rows(total, inv_perm, config.width, config.height)
+
+
 def render_rgb(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
     """Monte-Carlo RGB render of every variant, (B, H, W, 3).  `gens`: one
-    torch.Generator per variant (pixel jitter and bounce draws); the spp
-    samples are a Python loop."""
+    torch.Generator per variant (pixel jitter and bounce draws).  With
+    `shared_primary` the first vertex is shared by the spp samples
+    (_film_render_shared); otherwise the spp samples are a Python loop of
+    whole passes."""
+    if config.shared_primary:
+        img = _film_render_shared(scene, gens, config)
+        return img.reshape(scene.batch, config.height, config.width, 3)
     total = None
     for _ in range(config.spp):
         img = _film_render(scene, gens, config)

@@ -153,7 +153,7 @@ class Hit(_Replace):
     mat: Optional[Tensor] = None
 
 
-_NOT_PORTED = ("reparam", "shared_primary", "coherent_bounce", "ray_chunk")
+_NOT_PORTED = ("reparam", "ray_chunk")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +161,11 @@ class RenderConfig(_Replace):
     """Static render settings, with the reference's fields and defaults.
 
     Fields whose features are not ported raise NotImplementedError when set:
-    reparam (and its reparam_* tuning fields, inert without it),
-    shared_primary, coherent_bounce and ray_chunk.  env_nee only acts on
+    reparam (and its reparam_* tuning fields, inert without it) and
+    ray_chunk.  `coherent_bounce` draws one set of bounce uniforms per
+    2048-ray tile, shared by the tile's rays; `shared_primary` computes the
+    first path vertex (primary hit and its NEE) once for all spp samples
+    (see pathtracer._film_render_shared).  env_nee only acts on
     envmap backgrounds, which trace_rays refuses.  `static_geometry` must be
     True: only the kernel-attribute route of the path tracer is ported.
     `backend` must be "auto" (else ValueError): the device of the tensors

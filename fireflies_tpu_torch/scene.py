@@ -119,11 +119,12 @@ class Scene:
 
     # -- compilation -------------------------------------------------------------
 
-    def compile(self, device="cpu") -> Callable[[torch.Generator, int], dict[str, Tensor]]:
+    def compile(self, device="cuda") -> Callable[[torch.Generator, int], dict[str, Tensor]]:
         """Build the randomize function for the current train/eval mode.
 
         Returns randomize_params(gen, step) -> flat {param_key: Tensor} with
-        tensors on `device` (`gen` must live there too).  Entities draw in a
+        tensors on `device`, the card unless the caller asks for the CPU
+        (`gen` must live there too).  Entities draw in a
         fixed order — meshes, lights, camera, projector, materials — so one
         generator seeded from an int reproduces one variant.
         """

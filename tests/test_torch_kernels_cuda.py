@@ -1,11 +1,15 @@
-"""The two CUDA intersection kernels against their plain PyTorch versions,
-on the card.  Marked `cuda`; skipped where torch.cuda.is_available() is
-false.  Run on a GPU machine with
+"""The CUDA intersection kernels against their plain PyTorch versions, on
+the card: B1 (shared culled), B3 (general), B2 and B4 (streamed culled,
+with emitted attributes) and B5 (general culled).  Marked `cuda`; skipped
+where torch.cuda.is_available() is false.  Run on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
 Tolerance: any-hit masks exact; closest-hit prim equal except at t-ties
-(1e-5 relative), t within 1e-5 relative where the prims agree.
+(1e-5 relative), t within 1e-5 relative where the prims agree, emitted
+normal and material equal where the prims agree.  The per-ray counts of
+tested clusters (`tested`) are exact integers: 0 on dead rays, never more
+than the ray's tile lists.
 """
 
 import numpy as np
@@ -13,7 +17,9 @@ import pytest
 import torch
 
 from fireflies_tpu_torch.render.cuda import intersect_culled as ic
+from fireflies_tpu_torch.render.cuda import intersect_general_culled as igc
 from fireflies_tpu_torch.render.cuda import intersect_kernel as ik
+from fireflies_tpu_torch.render.cuda import intersect_stream as ist
 
 pytestmark = pytest.mark.cuda
 
@@ -42,7 +48,7 @@ def _inputs(dev, seed=0, n_rays=6000, n_faces=500, n_variants=3):
 
 
 def _check(kernel, plain, any_hit):
-    (t_k, p_k), (t_p, p_p) = kernel, plain
+    (t_k, p_k, *attrs_k), (t_p, p_p, *attrs_p) = kernel, plain
     torch.cuda.synchronize()
     assert torch.equal(p_k >= 0, p_p >= 0)
     if not any_hit:
@@ -50,6 +56,9 @@ def _check(kernel, plain, any_hit):
         tie = (t_k - t_p).abs() <= 1e-5 * t_p.abs().clamp(min=1.0)
         assert bool((same | tie).all())
         torch.testing.assert_close(t_k[same], t_p[same], rtol=1e-5, atol=1e-6)
+        assert len(attrs_k) == len(attrs_p)
+        for a_k, a_p in zip(attrs_k, attrs_p):
+            assert torch.equal(a_k[same], a_p[same])
     assert bool((p_p >= 0).any())
 
 
@@ -78,6 +87,159 @@ def test_shared_culled_kernel_matches_plain(dev, any_hit):
                                                  any_hit), any_hit)
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_culled_kernel_matches_plain(dev, any_hit):
+    verts, faces, _, d, tmax = _inputs(dev, seed=2)
+    origin = torch.tensor([[0.0, 0.5, 4.0]] * 3, device=dev)
+    face_mat = torch.arange(faces.shape[0], device=dev) % 5
+    woop16, boxes = ist.pack_woop_streamed(verts, faces, origin, face_mat)
+    dirs, tm, _ = ik.pack_dirs(d, tmax)
+    lists, counts = ic.tile_cluster_lists(dirs, boxes, t_min=1e-4, tmax_tiles=tm)
+    emit = not any_hit
+    before = ist.KERNEL.launches
+    out = ist.intersect_stream_culled_packed(dirs, tm, woop16, boxes, 1e-4, any_hit, emit,
+                                             lists=lists, counts=counts)
+    assert ist.KERNEL.launches == before + 1 and len(out) == (6 if emit else 2)
+    _check(out, ist.stream_culled_packed_plain(dirs, tm, woop16, boxes, lists, counts, 1e-4,
+                                               any_hit, emit), any_hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_general_culled_kernel_matches_plain(dev, any_hit):
+    verts, faces, o, d, tmax = _inputs(dev, seed=3)
+    face_mat = torch.arange(faces.shape[0], device=dev) % 5
+    woop16, boxes = ist.pack_woop_streamed(verts, faces, None, face_mat)
+    rays, tm, _ = ik.pack_rays(o, d, tmax)
+    lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+    emit = not any_hit
+    before = ist.KERNEL_GENERAL.launches
+    out = ist.intersect_stream_general_culled_packed(rays, tm, woop16, boxes, 1e-4, any_hit,
+                                                     emit, lists=lists, counts=counts)
+    assert ist.KERNEL_GENERAL.launches == before + 1
+    _check(out, ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4,
+                                               any_hit, emit), any_hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_general_culled_kernel_matches_plain(dev, any_hit):
+    verts, faces, o, d, tmax = _inputs(dev, seed=4)
+    tri, boxes = ik.pack_triangles(verts, faces, chunk=igc.CHUNK)
+    rays, tm, _ = ik.pack_rays(o, d, tmax)
+    lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+    before = igc.KERNEL.launches
+    out = igc.intersect_general_culled_packed(rays, tm, tri, boxes, 1e-4, any_hit,
+                                              lists=lists, counts=counts)
+    assert igc.KERNEL.launches == before + 1
+    _check(out, igc.intersect_general_culled_packed_plain(rays, tm, tri, boxes, lists, counts,
+                                                          1e-4, any_hit), any_hit)
+
+
+def _occluder_scene(dev, n_variants=2, n_rays=4096):
+    """A large quad (faces 0-1) in z = 0 with 126 small faces beside it fill
+    the first 128-face cluster; 384 small faces lie far behind it.  Rays
+    from around (0, 0, 4) toward the quad are all blocked by the first
+    listed cluster, so the streamed kernels' any-hit loop leaves while the
+    next cluster's copy is in flight."""
+    rng = np.random.default_rng(7)
+    quad = np.array([[-20, -20, 0], [20, -20, 0], [20, 20, 0], [-20, 20, 0]], np.float32)
+    small = rng.uniform(-0.05, 0.05, size=(510, 3, 3)).astype(np.float32)
+    centres = np.concatenate([
+        rng.uniform(-1, 1, size=(126, 3)) * [1, 1, 0.01] + [0, 0, 0.1],
+        rng.uniform(-3, 3, size=(384, 3)) * [1, 1, 0.1] + [0, 0, -30]]).astype(np.float32)
+    tris = np.concatenate([quad[[[0, 1, 2], [0, 2, 3]]], small + centres[:, None, :]])
+    verts = np.stack([tris.reshape(-1, 3)] * n_variants)
+    faces = np.arange(tris.shape[0] * 3).reshape(-1, 3)
+    u = rng.uniform(-0.3, 0.3, size=(n_variants, n_rays, 2))
+    d = np.concatenate([u, -np.ones((n_variants, n_rays, 1))], -1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(np.float32([0.0, 0.0, 4.0]), d.shape).copy()
+    o[..., :2] += rng.uniform(-0.2, 0.2, size=(n_variants, n_rays, 2)).astype(np.float32)
+    as_t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (as_t(verts), torch.as_tensor(faces, dtype=torch.long, device=dev), as_t(o), as_t(d),
+            torch.full((n_variants, n_rays), 100.0, device=dev))
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_stream_any_hit_exits_with_copy_in_flight(dev, general):
+    verts, faces, o, d, tmax = _occluder_scene(dev)
+    if general:
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, None)
+        rays, tm, _ = ik.pack_rays(o, d, tmax)
+        lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+        fn = ist.intersect_stream_general_culled_packed
+    else:
+        origin = torch.tensor([[0.0, 0.0, 4.0]] * 2, device=dev)
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, origin)
+        rays, tm, _ = ik.pack_dirs(d, tmax)
+        lists, counts = ic.tile_cluster_lists(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+        fn = ist.intersect_stream_culled_packed
+    assert int(counts.min()) >= 2 and bool((lists[..., 0] == 0).all())
+    tested = torch.empty_like(tm, dtype=torch.int32)
+    out = fn(rays, tm, woop16, boxes, 1e-4, True, lists=lists, counts=counts, tested=tested)
+    plain = ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4, True)
+    _check(out, plain, True)
+    assert bool((out[1] >= 0).all())  # every ray blocked, by the first cluster
+    assert bool((tested == 1).all())  # and no block tested a second one
+    # The next launch on the same stream sees no stale copy.
+    again = fn(rays, tm, woop16, boxes, 1e-4, False, lists=lists, counts=counts)
+    _check(again, ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4),
+           False)
+
+
+def _tested_case(dev, kernel):
+    """(wrapper, args, kwargs, listed clusters per ray) of one kernel on
+    `_inputs`, with its tile lists prebuilt where it has them."""
+    verts, faces, o, d, tmax = _inputs(dev, seed=5)
+    origin = torch.tensor([[0.0, 0.5, 4.0]] * 3, device=dev)
+    rays, tm, _ = ik.pack_rays(o, d, tmax)
+    dirs, _, _ = ik.pack_dirs(d, tmax)
+    if kernel == "B3":
+        tri, boxes = ik.pack_triangles(verts, faces)
+        return ik.intersect_packed, (rays, tm, tri, boxes, 1e-4), {}, boxes.shape[2]
+    if kernel in ("B1", "B2"):
+        if kernel == "B1":
+            table, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=ic.CHUNK)
+            fn = ic.intersect_culled_packed
+        else:
+            table, boxes = ist.pack_woop_streamed(verts, faces, origin)
+            fn = ist.intersect_stream_culled_packed
+        lists, counts = ic.tile_cluster_lists(dirs, boxes, t_min=1e-4, tmax_tiles=tm)
+        rays = dirs
+    else:
+        if kernel == "B4":
+            table, boxes = ist.pack_woop_streamed(verts, faces, None)
+            fn = ist.intersect_stream_general_culled_packed
+        else:
+            table, boxes = ik.pack_triangles(verts, faces, chunk=igc.CHUNK)
+            fn = igc.intersect_general_culled_packed
+        lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+    per_ray = counts.expand(-1, -1, ik.RAY_TILE).reshape(tm.shape)
+    return fn, (rays, tm, table, boxes, 1e-4), dict(lists=lists, counts=counts), per_ray
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5"])
+def test_tested_counts_bounded_by_lists(dev, kernel):
+    """The per-ray count of tested clusters that the pair-test bound is
+    taken from: 0 on dead rays, at most the listed clusters, some tested,
+    fewer in any-hit mode than in closest-hit mode, and the same outputs
+    as a launch that does not count."""
+    fn, args, kw, listed = _tested_case(dev, kernel)
+    tm = args[1]
+    counts = {}
+    for any_hit in (False, True):
+        tested = torch.full_like(tm, -1, dtype=torch.int32)
+        out = fn(*args, any_hit=any_hit, tested=tested, **kw)
+        for a, b in zip(out, fn(*args, any_hit=any_hit, **kw)):
+            assert torch.equal(a, b)
+        counts[any_hit] = tested
+    closest, any_hit = counts[False], counts[True]
+    live = tm >= 0
+    assert bool((closest[~live] == 0).all()) and bool((any_hit[~live] == 0).all())
+    assert bool((closest <= torch.where(live, listed, 0)).all())
+    assert bool((any_hit <= closest).all())
+    assert int(closest.sum()) > 0
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     verts, faces, o, d, tmax = _inputs(dev, n_variants=1)
     tri, boxes = ik.pack_triangles(verts, faces)
@@ -86,3 +248,6 @@ def test_wrappers_refuse_bad_inputs(dev):
         ik.intersect_packed(rays, tm.double(), tri, boxes, 1e-4)
     with pytest.raises(ValueError):
         ik.intersect_packed(rays, tm, tri.cpu(), boxes, 1e-4)
+    with pytest.raises(ValueError, match="tested"):  # only the kernel counts tested clusters
+        ik.intersect_packed(rays.cpu(), tm.cpu(), tri.cpu(), boxes.cpu(), 1e-4,
+                            tested=torch.zeros_like(tm.cpu(), dtype=torch.int32))

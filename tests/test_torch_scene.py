@@ -50,7 +50,7 @@ def test_randomize_matches(bridges, train):
     (js, _), (ts, _) = bridges
     for s in (js, ts):
         s.train() if train else s.eval()
-    jr, tr = js.compile(), ts.compile()
+    jr, tr = js.compile(), ts.compile("cpu")
     for step in range(5):
         jp = jr(jax.random.key(step), step)
         tp = tr(torch.Generator().manual_seed(step), step)
@@ -102,7 +102,7 @@ def test_assemble_from_jax_params(bridges):
 
 
 def test_laser_pattern_matches():
-    rays_t = tc_laser.generate_uniform_rays(0.0275, 12, 12)
+    rays_t = tc_laser.generate_uniform_rays(0.0275, 12, 12, device="cpu")
     rays_j = jx_laser.generate_uniform_rays(0.0275, 12, 12)
     assert rays_t.shape == (144, 3)
     np.testing.assert_allclose(rays_t.numpy(), np.asarray(rays_j), rtol=1e-6, atol=1e-6)
