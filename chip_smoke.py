@@ -2,14 +2,19 @@
 
     python3 chip_smoke.py
 
-Three paths, each a batch of 16 randomized vocalfold variants at 512x512
-with 2 bounces through `main_path.render_batch` / `pattern_step`:
+Five paths, each a batch of 16 randomized vocalfold variants at 512x512
+with 2 bounces through `main_path.render_batch` / `pattern_step`
+(`main_path.SHAPES`):
   * main: 1440 faces, spp 1 (the reference benchmark's default; kernels B1
     for camera and shadow rays, B3 for bounce rays);
   * reference shape: 11538 faces, spp 4, coherent bounce, shared primary
     (B2 for camera and shadow rays, B4 for bounce rays, with kernel-emitted
     hit attributes);
-  * mid-sized: 5288 faces, spp 1 (B1, and B5 for bounce rays).
+  * mid-sized: 5288 faces, spp 1 (B1, and B5 for bounce rays);
+  * main_unculled and reference_unculled: main and the reference shape with
+    tile culling off (`RenderConfig.tile_cull=False`, the reference's
+    FF_NO_TILE_CULL=1): B6 and B3; B7s and B7g with the attribute gather.
+Then the probe's FP32 throughput kernel X2 and kernel roof.
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: the card's name and power limit; CUDA must be available;
@@ -20,18 +25,22 @@ Phases (each raises on failure, so any failure exits non-zero):
      replayed through the kernel and its plain PyTorch version, with times
      and each launch's bound (from the pairs the kernel reports it tested).
      On the main path every launch is replayed;
-     on the two larger paths only the first launch of each (kernel, mode),
-     and the plain version runs on the first 2 of the 16 variants (the
-     kernel's output for those variants is compared; the plain versions
-     are slow at 11.5k faces);
+     on the other paths only the first launch of each (kernel, mode), and
+     the plain version runs on the first 2 of the 16 variants (the kernel's
+     output for those variants is compared; the plain versions are slow at
+     11.5k faces);
   4. reference (main path): the CUDA path against the CPU path (plain
      versions, held against the JAX package by the tests) on a small
      deterministic render;
   5. forward: `render_batch` with every launch counter set to 0 just before
-     it and read just after: the path's kernels must have launched and the
-     other routes' must not; then renders/s (median of 5 timed batches);
-  6. pattern step (main and reference-shape paths): loss and the (144, 3)
-     beam gradient, seconds per step and peak device memory.
+     it and read just after: the path's kernels must have launched and no
+     other; then renders/s (median of 5 timed batches);
+  6. pattern step (main, reference and reference_unculled): loss and the
+     (144, 3) beam gradient, seconds per step and peak device memory;
+  7. probe: X2 (`perf_probe.vpu_roof`, its counter set to 0 just before and
+     read just after) bit for bit against its plain version, its time,
+     bound and rate of unfused FP32 operations; the kernel roof (B3 on a
+     workload where every pair is tested).
 Then one JSON line with the kernels, the nvidia-smi line, and the result
 line `{"ok": true, "device": {...}}` last.
 """
@@ -40,33 +49,12 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, repeats: int) -> float:
-    import torch  # noqa: PLC0415
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / repeats
 
 
 def compare(name, kernel_out, plain_out, any_hit: bool) -> dict:
@@ -109,33 +97,24 @@ def compare(name, kernel_out, plain_out, any_hit: bool) -> dict:
     return {"mismatched": bad, "max_abs_err": err}
 
 
-# Float operations per tested (ray, triangle) pair, counted from the pair
-# tests in csrc/ (multiplies, adds, subtractions, negations and compares;
-# the selects that keep the best hit not counted): the shared-origin Woop
-# test (B1, B2), the general Woop test with o' formed per pair (B4), and
-# the rational Moller-Trumbore test (B3, B5).
-OPS_PER_PAIR = {"intersect_shared_culled": 40, "intersect_stream_culled": 40,
-                "intersect_stream_general_culled": 58, "intersect_general": 62,
-                "intersect_general_culled": 62}
-# H100 SXM FP32 outside the tensor cores: 67 TFLOP/s counts a fused
-# multiply-add as two operations.  The kernels are built with --fmad=false,
-# so each multiply, add and compare issues on its own: 33.5e12 a second.
-PEAK_FP32_OPS = 67e12 / 2
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
-
-
 def bound(name: str, rec: dict, n_out: int, tested) -> dict:
     """The least time the card could take for one launch: the larger of
     its bytes (every input tensor read once, `n_out` 4-byte outputs per
     ray written once) over the memory rate, and its operations over the
-    rate of single FP32 operations.  The operations are the pairs the
-    kernel tested on this launch's data (`tested`: per live ray, the
-    clusters its block tested after the block's slab vote) x the faces of
-    a cluster x OPS_PER_PAIR; the per-cluster slab tests are left out.
+    rate of single FP32 operations (`perf_probe.PEAK_*`).  The operations
+    are the pairs the kernel tested on this launch's data (`tested`: per
+    live ray, the clusters its block tested after the block's slab vote) x
+    the faces of a cluster x `perf_probe.OPS_PER_PAIR`; the per-cluster slab
+    tests are left out.
     Also the pairs on the tile lists (every cluster without lists), which
     the kernel tests at most."""
     import torch  # noqa: PLC0415
 
+    from fireflies_tpu_torch.perf_probe import (  # noqa: PLC0415
+        OPS_PER_PAIR,
+        PEAK_BYTES,
+        PEAK_FP32_OPS,
+    )
     from fireflies_tpu_torch.render.cuda.intersect_kernel import RAY_TILE  # noqa: PLC0415
 
     tensors = [v for v in rec.values() if isinstance(v, torch.Tensor)]
@@ -180,6 +159,10 @@ def versions():
 
     # name: (kernel wrapper, plain version, tile-list builder or None)
     return {
+        "intersect_shared": (ik.intersect_shared_packed, ik.intersect_shared_packed_plain, None),
+        "intersect_stream": (ist.intersect_stream_packed, ist.stream_packed_plain, None),
+        "intersect_stream_general": (ist.intersect_stream_general_packed, ist.stream_packed_plain,
+                                     None),
         "intersect_shared_culled": (ic.intersect_culled_packed, ic.intersect_culled_packed_plain,
                                     shared_lists),
         "intersect_general": (ik.intersect_packed, ik.intersect_packed_plain, None),
@@ -211,6 +194,7 @@ def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None)
     timed on their own (`lists_ms`)."""
     import torch  # noqa: PLC0415
 
+    from fireflies_tpu_torch.perf_probe import cuda_ms  # noqa: PLC0415
     from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
 
     table = versions()
@@ -291,11 +275,11 @@ def reference_phase(bridge, randomize, beams, dev) -> None:
         raise AssertionError("CUDA render disagrees with the plain-version render")
 
 
-def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected, absent) -> dict:
+def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected) -> dict:
     """One counted forward batch (every counter set to 0 just before, read
-    just after): each kernel of `expected` must have launched and none of
-    `absent`; then renders/s, the median of 5 timed batches after one
-    more.  Returns the counts by kernel name."""
+    just after): each kernel of `expected` must have launched and no other;
+    then renders/s, the median of 5 timed batches after one more.  Returns
+    the counts by kernel name."""
     import torch  # noqa: PLC0415
 
     from fireflies_tpu_torch import main_path  # noqa: PLC0415
@@ -315,7 +299,7 @@ def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected, absent) -
         raise AssertionError("image is not finite or is all zero")
     if any(launches[n] <= 0 for n in expected):
         raise AssertionError(f"{tag}: a kernel of the path was never launched: {launches}")
-    if any(launches[n] > 0 for n in absent):
+    if any(count > 0 for n, count in launches.items() if n not in expected):
         raise AssertionError(f"{tag}: a kernel of another route was launched: {launches}")
     times = []
     with torch.no_grad():
@@ -354,11 +338,53 @@ def pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev) -> None:
         raise AssertionError("beam gradient is not a finite nonzero (144, 3) tensor")
 
 
+def probe_phase(dev) -> dict:
+    """X2 through the probe's entry point with its counter set to 0 just
+    before and read just after, then bit for bit against its plain version
+    on that input; its time, bound and measured rate of unfused FP32
+    operations.  Then the kernel roof: B3 where every pair is tested.
+    Returns X2's entry of the kernels line."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import perf_probe  # noqa: PLC0415
+    from fireflies_tpu_torch.perf_probe import PEAK_BYTES, PEAK_FP32_OPS  # noqa: PLC0415
+
+    perf_probe.VPU_KERNEL.launches = 0
+    roof = perf_probe.vpu_roof(dev)
+    torch.cuda.synchronize()
+    launches = perf_probe.VPU_KERNEL.launches
+    if launches <= 0:
+        raise AssertionError("probe: X2 was never launched")
+    x = perf_probe.vpu_input(dev)
+    out, plain = perf_probe.vpu_rounds(x), perf_probe.vpu_rounds_plain(x)
+    differ = int((out != plain).sum())
+    if differ or not torch.isfinite(out).all():
+        raise AssertionError(f"probe: X2 differs from its plain version on {differ} elements")
+    nbytes = 2 * x.numel() * x.element_size()
+    mem_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, roof["ops"] / PEAK_FP32_OPS * 1e3
+    rate = roof["ops"] / roof["ms"] * 1e3
+    log(f"[probe/X2] {tuple(x.shape)} x {perf_probe.VPU_ROUNDS} rounds: kernel {roof['ms']:.4f} "
+        f"ms, plain {roof['plain_ms']:.4f} ms, bitwise equal; bound {max(mem_ms, ops_ms):.4f} ms "
+        f"({roof['ops']:.4g} operations; bytes {mem_ms:.4f} ms); {rate:.4g} unfused FP32 "
+        f"operations/s = {rate / PEAK_FP32_OPS:.3f} of {PEAK_FP32_OPS:.4g}; {launches} launches")
+    kr = perf_probe.kernel_roof(dev)
+    log(f"[probe/kernel roof] B3, {kr['tested_pairs']:.4g} pairs tested of {kr['listed_pairs']:.4g}"
+        f": {kr['ms']:.4f} ms, {kr['gtests_s']:.4f} Gtests/s, bound {kr['bound_ms']:.4f} ms "
+        f"(bound / kernel {kr['bound_ms'] / kr['ms']:.3f})")
+    return {"name": "vpu_probe", "route": "cuda", "source": "fireflies_tpu_torch/csrc/vpu_probe.cu",
+            "replaces": "tools/perf_probe.py:390", "path": "probe", "launches": launches,
+            "max_abs_err": 0.0, "ms": roof["ms"], "plain_ms": roof["plain_ms"],
+            "bound_ms": max(mem_ms, ops_ms),
+            "bound_by": "bytes" if mem_ms > ops_ms else "operations",
+            "library_ms": None, "fp32_ops_per_s": rate}
+
+
 SIZE = 512
 BATCH = 16
 B1, B3 = "intersect_shared_culled", "intersect_general"
 B2, B4 = "intersect_stream_culled", "intersect_stream_general_culled"
 B5 = "intersect_general_culled"
+B6, B7S, B7G = "intersect_shared", "intersect_stream", "intersect_stream_general"
 SOURCES = {
     B1: ("fireflies_tpu_torch/csrc/intersect_shared_culled.cu",
          "fireflies_tpu/render/pallas/intersect_culled.py:700"),
@@ -370,6 +396,12 @@ SOURCES = {
          "fireflies_tpu/render/pallas/intersect_stream.py:1097"),
     B5: ("fireflies_tpu_torch/csrc/intersect_general_culled.cu",
          "fireflies_tpu/render/pallas/intersect_culled.py:465"),
+    B6: ("fireflies_tpu_torch/csrc/intersect_shared.cu",
+         "fireflies_tpu/render/pallas/intersect_kernel.py:522"),
+    B7S: ("fireflies_tpu_torch/csrc/intersect_stream.cu",
+          "fireflies_tpu/render/pallas/intersect_stream.py:713"),
+    B7G: ("fireflies_tpu_torch/csrc/intersect_stream_general.cu",
+          "fireflies_tpu/render/pallas/intersect_stream.py:740"),
 }
 
 
@@ -380,12 +412,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
         return 1
+
+    from fireflies_tpu_torch import _build, main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.perf_probe import nvidia_smi  # noqa: PLC0415
+
     smi = nvidia_smi()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-
-    from fireflies_tpu_torch import _build, main_path  # noqa: PLC0415
 
     # 2. build
     cached = _build.library_path().exists()
@@ -400,30 +434,32 @@ def main() -> int:
 
     seeds = list(range(BATCH))
     kres, launches, kernel_path = {}, {}, {}
-    # (shape in main_path.SHAPES, kernels of the path, kernels of other
-    # routes, replay only the first launch of each (kernel, mode), plain
-    # versions' variants, pattern step)
+    # (shape in main_path.SHAPES, kernels of the path, replay only the first
+    # launch of each (kernel, mode), plain versions' variants, pattern step)
     paths = [
-        ("main", (B1, B3), (B2, B4, B5), False, None, True),
-        ("reference", (B2, B4), (B1, B3, B5), True, 2, True),
-        ("mid", (B1, B5), (B2, B3, B4), True, 2, False),
+        ("main", (B1, B3), False, None, True),
+        ("reference", (B2, B4), True, 2, True),
+        ("mid", (B1, B5), True, 2, False),
+        ("main_unculled", (B6, B3), True, 2, False),
+        ("reference_unculled", (B7S, B7G), True, 2, True),
     ]
-    for tag, expected, absent, first_only, plain_nv, step in paths:
+    for tag, expected, first_only, plain_nv, step in paths:
         t_path = time.perf_counter()
         resolution, shape_cfg = main_path.SHAPES[tag]
         cfg = main_path.bench_config(size=SIZE, **shape_cfg)
         bridge, randomize, beams = main_path.build(dev, resolution=resolution)
         log(f"[{tag}/kernels] {BATCH} variants x {SIZE}x{SIZE} rays, spp {cfg.spp}, "
-            f"{len(bridge._faces)} faces (vocalfold resolution {resolution})"
-            + (f"; first launch of each (kernel, mode) only, plain versions on the first "
-               f"{plain_nv} variants" if first_only else "; every launch"))
+            f"{len(bridge._faces)} faces (vocalfold resolution {resolution}), tile_cull "
+            f"{cfg.tile_cull}" + (f"; first launch of each (kernel, mode) only, plain versions "
+                                  f"on the first {plain_nv} variants" if first_only
+                                  else "; every launch"))
         res = kernel_phase(tag, lambda: main_path.render_batch(bridge, randomize, beams, seeds,
                                                                cfg), first_only, plain_nv)
         kres.update(res)
         if tag == "main":
             log("[main/reference]")
             reference_phase(bridge, randomize, beams, dev)
-        counts = forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected, absent)
+        counts = forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected)
         for name in expected:
             if name not in kernel_path:
                 kernel_path[name] = tag
@@ -431,6 +467,10 @@ def main() -> int:
         if step:
             pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
         log(f"[{tag}] {time.perf_counter() - t_path:.1f} s")
+
+    t_probe = time.perf_counter()
+    x2 = probe_phase(dev)
+    log(f"[probe] {time.perf_counter() - t_probe:.1f} s")
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -454,6 +494,7 @@ def main() -> int:
         if "lists_ms" in closest:
             entry["tile_lists_ms"] = closest["lists_ms"]
         kernels.append(entry)
+    kernels.append(x2)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

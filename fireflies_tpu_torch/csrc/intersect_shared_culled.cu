@@ -3,120 +3,21 @@
 //
 // Replaces fireflies_tpu/render/pallas/intersect_culled.py::
 // intersect_pallas_shared_culled (Pallas body `_kernel_shared_culled`).
-// Every ray of a batch starts at one origin (the camera, or a light for
-// reversed shadow rays), so each triangle is pre-mapped by its Woop affine
-// transform: o' = W (o - v0) is a per-triangle constant and a pair costs
-// d' = W d plus a division-free in-triangle test, with the best hit carried
-// as a rational (tn, dn = |d'_z|).  Each 2048-ray tile walks only the
-// clusters on its front-to-back list (built by tile_cluster_lists in plain
-// tensor ops), with a slab test per cluster that skips clusters farther
-// than every ray's current best hit.
+// Camera rays and shadow rays reversed to start at a light share one origin,
+// so a pair costs d' = W d plus a division-free Woop test.  Each 2048-ray
+// tile walks only the clusters on its front-to-back list (built by
+// tile_cluster_lists in plain tensor ops), with a slab test per cluster that
+// skips clusters farther than every ray's current best hit.  The body
+// (staging, block votes, rational best hit) is intersect_shared.cuh.
 //
-// What bounds it on this card: arithmetic, about 25 float operations per
+// What bounds it on this card: arithmetic, about 40 float operations per
 // ray-triangle pair.  A cluster's 12 Woop rows (48 bytes a face) are read
 // once per block into shared memory and broadcast to all threads; the
 // per-variant Woop table (~70 KB at 1440 faces) and the lists stay in L2,
-// so device memory traffic is the directions in and (t, prim) out.
-//
-// The simple design: one thread per ray, 256 rays per block, grid
-// (R / 256, B); the eight blocks of a 2048-ray tile read the same list.
-// The block votes on each cluster's slab test (__syncthreads_or) and skips
-// it together; any-hit mode leaves the loop once every live ray of the block
-// is blocked or dead (__syncthreads_and).  Dead rays (tmax < 0) never hit.
-// `tested`, unless null, gets each live ray's number of clusters whose faces
-// its block tested (0 for a dead ray), the count that the pair-test bound of
-// a launch is taken from.
+// so device memory traffic is the directions in and (t, prim) out.  The
+// eight blocks of a 2048-ray tile read the same list.
 
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kRayTile = 2048;
-constexpr float kBig = 3.0e38f;
-constexpr float kEpsBary = 1e-6f;
-
-__device__ __forceinline__ float safe_inv(float x) {
-  if (fabsf(x) < 1e-30f) return x < 0.0f ? -1e30f : 1e30f;
-  return 1.0f / x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-intersect_shared_culled_kernel(const float* __restrict__ dirs, const float* __restrict__ tmax_in,
-                               const float* __restrict__ woop, const float* __restrict__ boxes,
-                               const int* __restrict__ lists, const int* __restrict__ counts,
-                               float* __restrict__ out_t, int* __restrict__ out_prim,
-                               int* __restrict__ tested, int R, int tpad, int nc, int chunk,
-                               float t_min, int any_hit) {
-  extern __shared__ float s_w[];  // [12][chunk]
-  const int b = blockIdx.y;
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const int n_tiles = R / kRayTile;
-  const int tile = (blockIdx.x * kThreads) / kRayTile;
-  const float* dir = dirs + (size_t)b * 3 * R;
-  const float dx = dir[r], dy = dir[R + r], dz = dir[2 * R + r];
-  const float tmax = tmax_in[(size_t)b * R + r];
-  const bool dead = tmax < 0.0f;
-  const float* w_b = woop + (size_t)b * 12 * tpad;
-  const float* box_b = boxes + (size_t)b * 6 * nc;
-  const int* list = lists + ((size_t)b * n_tiles + tile) * nc;
-  const int n_listed = __ldg(counts + (size_t)b * n_tiles + tile);
-  const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
-
-  float btn = kBig, bdn = 1.0f;
-  int bp = -1, n_tested = 0;
-  for (int ci = 0; ci < n_listed; ++ci) {
-    if (any_hit && __syncthreads_and(bp >= 0 || dead)) break;
-    const int c = __ldg(list + ci);
-    const float best_t = btn / bdn;
-    const float t0x = __ldg(box_b + 0 * nc + c) * inv_dx;
-    const float t1x = __ldg(box_b + 3 * nc + c) * inv_dx;
-    const float t0y = __ldg(box_b + 1 * nc + c) * inv_dy;
-    const float t1y = __ldg(box_b + 4 * nc + c) * inv_dy;
-    const float t0z = __ldg(box_b + 2 * nc + c) * inv_dz;
-    const float t1z = __ldg(box_b + 5 * nc + c) * inv_dz;
-    const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fmaxf(fminf(t0z, t1z), t_min));
-    const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                             fminf(fmaxf(t0z, t1z), fminf(tmax, best_t)));
-    if (!__syncthreads_or(tnear <= tfar)) continue;
-    ++n_tested;
-
-    for (int i = threadIdx.x; i < 12 * chunk; i += kThreads) {
-      const int k = i / chunk, j = i - k * chunk;
-      s_w[i] = __ldg(w_b + (size_t)k * tpad + (size_t)c * chunk + j);
-    }
-    __syncthreads();
-    for (int j = 0; j < chunk; ++j) {
-      const float w00 = s_w[0 * chunk + j], w01 = s_w[1 * chunk + j], w02 = s_w[2 * chunk + j];
-      const float w10 = s_w[3 * chunk + j], w11 = s_w[4 * chunk + j], w12 = s_w[5 * chunk + j];
-      const float w20 = s_w[6 * chunk + j], w21 = s_w[7 * chunk + j], w22 = s_w[8 * chunk + j];
-      const float opx = s_w[9 * chunk + j], opy = s_w[10 * chunk + j], opz = s_w[11 * chunk + j];
-      const float dpx = w00 * dx + w01 * dy + w02 * dz;
-      const float dpy = w10 * dx + w11 * dy + w12 * dz;
-      const float dpz = w20 * dx + w21 * dy + w22 * dz;
-      const float sgn = dpz >= 0.0f ? 1.0f : -1.0f;
-      const float dn = dpz * sgn;
-      const float tn = -opz * sgn;
-      const float u_n = opx * dn + tn * dpx;
-      const float v_n = opy * dn + tn * dpy;
-      const bool ok = dn > 1e-12f && u_n >= -kEpsBary * dn && v_n >= -kEpsBary * dn &&
-                      u_n + v_n <= (1.0f + kEpsBary) * dn && tn > t_min * dn &&
-                      tn < tmax * dn && tn * bdn < btn * dn;
-      if (ok) {
-        btn = tn;
-        bdn = dn;
-        bp = c * chunk + j;
-      }
-    }
-    __syncthreads();
-  }
-  out_t[(size_t)b * R + r] = bp >= 0 ? btn / bdn : 0.0f;
-  out_prim[(size_t)b * R + r] = bp;
-  if (tested != nullptr) tested[(size_t)b * R + r] = dead ? 0 : n_tested;
-}
-
-}  // namespace
+#include "intersect_shared.cuh"
 
 // dirs (B, 3, R), tmax (B, R), woop (B, 12, tpad), boxes (B, 6, nc) shifted to
 // the shared origin, lists (B, R / 2048, nc), counts (B, R / 2048) -> out_t,
@@ -128,12 +29,7 @@ extern "C" int ff_intersect_shared_culled(const float* dirs, const float* tmax,
                                           int* out_prim, int* tested, int B, int R, int tpad,
                                           int nc, int chunk, float t_min, int any_hit,
                                           void* stream) {
-  if (B <= 0 || R <= 0) return 0;
-  if (R % kRayTile != 0 || tpad != nc * chunk || chunk <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(R / kThreads, B);
-  const size_t smem = sizeof(float) * 12 * chunk;
-  intersect_shared_culled_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      dirs, tmax, woop, boxes, lists, counts, out_t, out_prim, tested, R, tpad, nc, chunk, t_min,
-      any_hit);
-  return (int)cudaGetLastError();
+  return ff_shared::launch_intersect_shared<true>(dirs, tmax, woop, boxes, lists, counts, out_t,
+                                                  out_prim, tested, B, R, tpad, nc, chunk, t_min,
+                                                  any_hit, stream);
 }

@@ -1,21 +1,22 @@
-// The shared body of the two streamed, tile-culled Woop kernels for Hopper
-// (sm_90a): intersect_stream_culled.cu (shared origin) and
-// intersect_stream_general_culled.cu (per-ray origins) instantiate it.
+// The shared body of the four streamed Woop kernels for Hopper (sm_90a):
+// intersect_stream_culled.cu (B2) and intersect_stream_general_culled.cu
+// (B4) walk per-tile cluster lists; intersect_stream.cu (B7s) and
+// intersect_stream_general.cu (B7g) walk every cluster in index order.
 //
-// Each 2048-ray tile walks its front-to-back list of 128-face clusters.  A
-// cluster's rows of the packed Woop table (W rows 0-8, o' or W v0 rows 9-11,
-// the material id in row 12) are copied from device memory into one of two
-// shared-memory buffers with cp.async, 16 bytes a thread: while the block
-// tests cluster i it already copies the next listed cluster into the other
-// buffer, the card's counterpart of the Pallas kernels' DMA double buffer.
-// The block votes on each cluster's slab test (__syncthreads_or); a pruned
-// cluster skips its arithmetic but not its copy.  In any-hit mode the block
-// leaves the list once every live ray is blocked or dead
-// (__syncthreads_and), and waits for the copy still in flight before it
-// exits, since the shared memory it targets is handed to the next block.
-// `tested`, unless null, gets each live ray's number of clusters whose faces
-// its block tested (0 for a dead ray), the count that the pair-test bound of
-// a launch is taken from.
+// A block walks 128-face clusters: with lists (kLists), its 2048-ray tile's
+// front-to-back list; without, clusters 0 .. nc - 1.  A cluster's rows of
+// the packed Woop table (W rows 0-8, o' or W v0 rows 9-11, the material id
+// in row 12) are copied from device memory into one of two shared-memory
+// buffers with cp.async, 16 bytes a thread: while the block tests cluster i
+// it already copies the next cluster into the other buffer, the card's
+// counterpart of the Pallas kernels' DMA double buffer.  The block votes on
+// each cluster's slab test (__syncthreads_or); a pruned cluster skips its
+// arithmetic but not its copy.  In any-hit mode the block leaves the walk
+// once every live ray is blocked or dead (__syncthreads_and), and waits for
+// the copy still in flight before it exits, since the shared memory it
+// targets is handed to the next block.  `tested`, unless null, gets each
+// live ray's number of clusters whose faces its block tested (0 for a dead
+// ray), the count that the pair-test bound of a launch is taken from.
 
 #pragma once
 
@@ -69,18 +70,18 @@ __device__ __forceinline__ void copy_cluster(float* buf, const float* woop_b, in
 // kGeneral = false: rays (B, 3, R) directions from a shared origin, woop rows
 // 9-11 = o' = W (o - v0), boxes origin-shifted.  kGeneral = true: rays
 // (B, 6, R) origins then directions, rows 9-11 = W v0 and o'_k = W_k . o -
-// (W v0)_k formed per pair, boxes in world space.  out_nx .. out_mat may be
-// null (no attributes), and so may tested.
-template <bool kGeneral>
+// (W v0)_k formed per pair, boxes in world space.  kLists = false: lists and
+// counts are unused (null).  out_nx .. out_mat may be null (no attributes),
+// and so may tested.
+template <bool kGeneral, bool kLists>
 __global__ void __launch_bounds__(kThreads)
-stream_culled_kernel(const float* __restrict__ rays, const float* __restrict__ tmax_in,
-                     const float* __restrict__ woop, const float* __restrict__ boxes,
-                     const int* __restrict__ lists, const int* __restrict__ counts,
-                     float* __restrict__ out_t, int* __restrict__ out_prim,
-                     float* __restrict__ out_nx, float* __restrict__ out_ny,
-                     float* __restrict__ out_nz, int* __restrict__ out_mat,
-                     int* __restrict__ tested, int R, int tpad, int nc, float t_min,
-                     int any_hit) {
+stream_kernel(const float* __restrict__ rays, const float* __restrict__ tmax_in,
+              const float* __restrict__ woop, const float* __restrict__ boxes,
+              const int* __restrict__ lists, const int* __restrict__ counts,
+              float* __restrict__ out_t, int* __restrict__ out_prim,
+              float* __restrict__ out_nx, float* __restrict__ out_ny,
+              float* __restrict__ out_nz, int* __restrict__ out_mat,
+              int* __restrict__ tested, int R, int tpad, int nc, float t_min, int any_hit) {
   __shared__ __align__(16) float s_w[2 * kBufFloats];
   constexpr int kComp = kGeneral ? 6 : 3;
   const int b = blockIdx.y;
@@ -100,21 +101,22 @@ stream_culled_kernel(const float* __restrict__ rays, const float* __restrict__ t
   const bool dead = tmax < 0.0f;
   const float* woop_b = woop + (size_t)b * kWoopRows * tpad;
   const float* box_b = boxes + (size_t)b * 6 * nc;
-  const int* list = lists + ((size_t)b * n_tiles + tile) * nc;
+  const int* list = kLists ? lists + ((size_t)b * n_tiles + tile) * nc : nullptr;
   const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
+  auto cluster = [&](int ci) { return kLists ? __ldg(list + ci) : ci; };
 
   float btn = kBig, bdn = 1.0f, bnx = 0.0f, bny = 0.0f, bnz = 1.0f, bmat = 0.0f;
   int bp = -1, n_tested = 0;
-  int n_listed = __ldg(counts + (size_t)b * n_tiles + tile);
+  int n_listed = kLists ? __ldg(counts + (size_t)b * n_tiles + tile) : nc;
   if (!any_hit && __syncthreads_and(dead)) n_listed = 0;
-  if (n_listed > 0) copy_cluster(s_w, woop_b, tpad, __ldg(list));
+  if (n_listed > 0) copy_cluster(s_w, woop_b, tpad, cluster(0));
   for (int ci = 0; ci < n_listed; ++ci) {
     if (any_hit && __syncthreads_and(bp >= 0 || dead)) break;
-    const int c = __ldg(list + ci);
+    const int c = cluster(ci);
     const float* cur = s_w + (ci & 1) * kBufFloats;
     if (ci + 1 < n_listed) {
       // The other buffer was last read before the previous barrier.
-      copy_cluster(s_w + ((ci + 1) & 1) * kBufFloats, woop_b, tpad, __ldg(list + ci + 1));
+      copy_cluster(s_w + ((ci + 1) & 1) * kBufFloats, woop_b, tpad, cluster(ci + 1));
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -190,25 +192,25 @@ stream_culled_kernel(const float* __restrict__ rays, const float* __restrict__ t
   if (tested != nullptr) tested[o] = dead ? 0 : n_tested;
 }
 
-// rays (B, 3 or 6, R), tmax (B, R), woop (B, 16, tpad), boxes (B, 6, nc),
-// lists (B, R / 2048, nc), counts (B, R / 2048) -> out_t, out_prim and, unless
-// null, out_nx/ny/nz/mat and tested (B, R).  R must be a multiple of 2048,
-// tpad == nc * 128, and woop 16-byte aligned.
-template <bool kGeneral>
-int launch_stream_culled(const float* rays, const float* tmax, const float* woop,
-                         const float* boxes, const int* lists, const int* counts, float* out_t,
-                         int* out_prim, float* out_nx, float* out_ny, float* out_nz, int* out_mat,
-                         int* tested, int B, int R, int tpad, int nc, float t_min, int any_hit,
-                         void* stream) {
+// rays (B, 3 or 6, R), tmax (B, R), woop (B, 16, tpad), boxes (B, 6, nc) and,
+// with kLists, lists (B, R / 2048, nc), counts (B, R / 2048) -> out_t,
+// out_prim and, unless null, out_nx/ny/nz/mat and tested (B, R).  R must be a
+// multiple of 2048, tpad == nc * 128, and woop 16-byte aligned.
+template <bool kGeneral, bool kLists>
+int launch_stream(const float* rays, const float* tmax, const float* woop, const float* boxes,
+                  const int* lists, const int* counts, float* out_t, int* out_prim, float* out_nx,
+                  float* out_ny, float* out_nz, int* out_mat, int* tested, int B, int R, int tpad,
+                  int nc, float t_min, int any_hit, void* stream) {
   if (B <= 0 || R <= 0) return 0;
   if (R % kRayTile != 0 || tpad != nc * kChunk) return (int)cudaErrorInvalidValue;
+  if (kLists && (lists == nullptr || counts == nullptr)) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<size_t>(woop) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const bool attrs = out_nx != nullptr;
   if (attrs && (out_ny == nullptr || out_nz == nullptr || out_mat == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid(R / kThreads, B);
-  stream_culled_kernel<kGeneral><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  stream_kernel<kGeneral, kLists><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       rays, tmax, woop, boxes, lists, counts, out_t, out_prim, out_nx, out_ny, out_nz, out_mat,
       tested, R, tpad, nc, t_min, any_hit);
   return (int)cudaGetLastError();

@@ -11,7 +11,7 @@
 // W2 row, n / |n|^2) and material id (row 12) are kept by select, so the path
 // tracer needs no attribute gather; a miss writes (0, 0, 1) and material 0.
 // The body (cluster lists, cp.async double buffer, block votes, drain) is
-// intersect_stream_culled.cuh.
+// intersect_stream.cuh.
 //
 // What bounds it on this card: arithmetic, about 40 float operations per
 // ray-triangle pair over the clusters each block tests.  A cluster's 13 rows
@@ -20,7 +20,7 @@
 // variant at 11.5k faces) stays in L2, so device memory traffic is the
 // directions in and the outputs out.
 
-#include "intersect_stream_culled.cuh"
+#include "intersect_stream.cuh"
 
 extern "C" int ff_intersect_stream_culled(const float* dirs, const float* tmax,
                                           const float* woop, const float* boxes,
@@ -29,7 +29,7 @@ extern "C" int ff_intersect_stream_culled(const float* dirs, const float* tmax,
                                           float* out_nz, int* out_mat, int* tested, int B, int R,
                                           int tpad, int nc, float t_min, int any_hit,
                                           void* stream) {
-  return ff_stream::launch_stream_culled<false>(dirs, tmax, woop, boxes, lists, counts, out_t,
-                                                out_prim, out_nx, out_ny, out_nz, out_mat, tested,
-                                                B, R, tpad, nc, t_min, any_hit, stream);
+  return ff_stream::launch_stream<false, true>(dirs, tmax, woop, boxes, lists, counts, out_t,
+                                               out_prim, out_nx, out_ny, out_nz, out_mat, tested,
+                                               B, R, tpad, nc, t_min, any_hit, stream);
 }

@@ -1,0 +1,30 @@
+// General-origin ray/triangle closest-hit and any-hit over every streamed
+// cluster, for large scenes with tile culling off, for Hopper (sm_90a).
+//
+// Replaces fireflies_tpu/render/pallas/intersect_stream.py::
+// intersect_pallas_streamed_general (Pallas body `_kernel_stream`,
+// shared=False), the bounce-ray route the reference takes above 8192 faces
+// with FF_NO_TILE_CULL=1.  The table's rows 9-11 hold W v0 and each pair
+// forms o'_k = W_k . o - (W v0)_k before the division-free Woop test.  Every
+// block walks all 128-face clusters in index order (not front to back, so
+// the running best prunes less than on B4's lists), double-buffering them
+// with cp.async; its slab vote skips a cluster's arithmetic.  No attributes
+// are emitted, as in the reference.  The body is intersect_stream.cuh.
+//
+// What bounds it on this card: arithmetic, about 58 float operations per
+// ray-triangle pair over the clusters each block tests (the shared-origin
+// test plus 18 for o'); the table stays in L2, and device memory traffic is
+// the rays in and (t, prim) out.
+
+#include "intersect_stream.cuh"
+
+// rays (B, 6, R), tmax (B, R), woop (B, 16, tpad), boxes (B, 6, nc) in world
+// space -> out_t, out_prim and, unless null, tested (B, R).
+extern "C" int ff_intersect_stream_general(const float* rays, const float* tmax,
+                                           const float* woop, const float* boxes, float* out_t,
+                                           int* out_prim, int* tested, int B, int R, int tpad,
+                                           int nc, float t_min, int any_hit, void* stream) {
+  return ff_stream::launch_stream<true, false>(rays, tmax, woop, boxes, nullptr, nullptr, out_t,
+                                               out_prim, nullptr, nullptr, nullptr, nullptr,
+                                               tested, B, R, tpad, nc, t_min, any_hit, stream);
+}

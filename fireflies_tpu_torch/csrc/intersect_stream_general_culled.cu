@@ -11,14 +11,14 @@
 // (the tile's origin and direction boxes against each cluster box, front to
 // back from the tile's origins); a tile whose count is 0 (every ray dead)
 // issues no copy.  Plane normal and material id are emitted as in
-// intersect_stream_culled.cu.  The body is intersect_stream_culled.cuh.
+// intersect_stream_culled.cu.  The body is intersect_stream.cuh.
 //
 // What bounds it on this card: arithmetic, about 58 float operations per
 // ray-triangle pair over the clusters each block tests (the shared-origin
 // test plus 18 for o'); the table stays in L2 as there, and device memory traffic is the
 // rays in and the outputs out.
 
-#include "intersect_stream_culled.cuh"
+#include "intersect_stream.cuh"
 
 extern "C" int ff_intersect_stream_general_culled(const float* rays, const float* tmax,
                                                   const float* woop, const float* boxes,
@@ -27,7 +27,7 @@ extern "C" int ff_intersect_stream_general_culled(const float* rays, const float
                                                   float* out_ny, float* out_nz, int* out_mat,
                                                   int* tested, int B, int R, int tpad, int nc,
                                                   float t_min, int any_hit, void* stream) {
-  return ff_stream::launch_stream_culled<true>(rays, tmax, woop, boxes, lists, counts, out_t,
-                                               out_prim, out_nx, out_ny, out_nz, out_mat, tested,
-                                               B, R, tpad, nc, t_min, any_hit, stream);
+  return ff_stream::launch_stream<true, true>(rays, tmax, woop, boxes, lists, counts, out_t,
+                                              out_prim, out_nx, out_ny, out_nz, out_mat, tested,
+                                              B, R, tpad, nc, t_min, any_hit, stream);
 }

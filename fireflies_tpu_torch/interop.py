@@ -12,10 +12,11 @@ import numpy as np
 import torch
 
 
-def from_jax_params(params: dict, device="cpu") -> dict:
+def from_jax_params(params: dict, device="cuda") -> dict:
     """{key: numpy array} (e.g. 'mesh-Vocalfold.vertex_positions' (625, 3),
     'mat-Mucosa.roughness' (), 'tex.beams' (144, 2)) -> {key: float32
-    tensor on `device`}.  Tuples such as 'tex.beam_hw' pass through."""
+    tensor on `device`} (the card unless the caller asks for the CPU).
+    Tuples such as 'tex.beam_hw' pass through."""
     out = {}
     for key, value in params.items():
         if isinstance(value, tuple):

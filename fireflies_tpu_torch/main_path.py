@@ -8,6 +8,8 @@ laser pattern, assemble, path-trace every variant (512x512, spp 1,
 to the (144, 3) beam directions.  `bench.py` also records the
 reference-realistic shape: `resolution=75` (11538 faces) at spp 4 with
 `coherent_bounce` and `shared_primary`, which runs on the streamed kernels.
+Each shape also runs with tile culling off (`tile_cull=False`, the
+reference's FF_NO_TILE_CULL=1), on the kernels without cluster lists.
 
     bridge, randomize, beams = build(device, resolution)
     img = render_batch(bridge, randomize, beams, seeds, cfg)      # (B, H, W, 3)
@@ -28,23 +30,28 @@ PROJECTOR_FOV = 30.0
 BEAM_SIGMA = 10.0
 BEAM_TEXTURE = (256, 256)
 
-# The three shapes chip_smoke.py drives, by name: (vocalfold resolution,
+# The shapes chip_smoke.py drives, by name: (vocalfold resolution,
 # bench_config settings beside size).  All have 2 bounces and a batch of 16
 # there.  Faces (fold + 288 tube): main 1440, the benchmark default (B1 and
 # B3); mid 5288, the mid-sized route (B1 and B5); reference 11538, the
-# reference-realistic shape (B2 and B4).
+# reference-realistic shape (B2 and B4).  The `_unculled` shapes turn tile
+# culling off: main_unculled on B6 and B3, reference_unculled on B7s and
+# B7g with the attribute gather.
+_REFERENCE = dict(spp=4, coherent_bounce=True, shared_primary=True)
 SHAPES = {
     "main": (24, {}),
     "mid": (50, {}),
-    "reference": (75, dict(spp=4, coherent_bounce=True, shared_primary=True)),
+    "reference": (75, _REFERENCE),
+    "main_unculled": (24, dict(tile_cull=False)),
+    "reference_unculled": (75, dict(_REFERENCE, tile_cull=False)),
 }
 
 
 def bench_config(size: int = 512, spp: int = 1, bounces: int = 2, coherent_bounce: bool = False,
-                 shared_primary: bool = False) -> RenderConfig:
+                 shared_primary: bool = False, tile_cull: bool = True) -> RenderConfig:
     return RenderConfig(width=size, height=size, spp=spp, max_bounces=bounces,
                         static_geometry=True, coherent_bounce=coherent_bounce,
-                        shared_primary=shared_primary)
+                        shared_primary=shared_primary, tile_cull=tile_cull)
 
 
 def build(device="cuda", resolution: int = SHAPES["main"][0]):
@@ -63,20 +70,19 @@ def generators(seeds, device) -> list[torch.Generator]:
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 
-def _variant_params(randomize, beam_params: dict, gen: torch.Generator) -> dict:
-    params = dict(randomize(gen, 0))
-    params.update(beam_params)
-    return params
+def scene_batch(bridge: SceneBridge, randomize, beams: Tensor, gens):
+    """The RenderScene of one randomized variant per generator, each with
+    the beam pattern's projector attached."""
+    beam_params = laser.rays_to_beam_params(beams, PROJECTOR_FOV, sigma=BEAM_SIGMA,
+                                            texture_size=BEAM_TEXTURE)
+    return bridge.assemble([dict(randomize(g, 0), **beam_params) for g in gens])
 
 
 def render_batch(bridge: SceneBridge, randomize, beams: Tensor, seeds,
                  cfg: RenderConfig) -> Tensor:
     """Render one randomized variant per seed in one batch; (B, H, W, 3)."""
     gens = generators(seeds, beams.device)
-    beam_params = laser.rays_to_beam_params(beams, PROJECTOR_FOV, sigma=BEAM_SIGMA,
-                                            texture_size=BEAM_TEXTURE)
-    scene = bridge.assemble([_variant_params(randomize, beam_params, g) for g in gens])
-    return render_rgb(scene, gens, cfg)
+    return render_rgb(scene_batch(bridge, randomize, beams, gens), gens, cfg)
 
 
 def pattern_step(bridge: SceneBridge, randomize, beams: Tensor, seeds,

@@ -2,10 +2,12 @@
 
     python -m fireflies_tpu_torch.profile_main [--shape main] [--size 512] [--batch 16]
 
-`--shape` picks one of the three shapes chip_smoke.py drives, all with 2
-bounces: `main` (1440 faces, spp 1; B1 and B3, the default), `mid` (5288
-faces, spp 1; B1 and B5) and `reference` (the reference-realistic shape:
-11538 faces, spp 4, coherent bounce, shared primary; B2 and B4).
+`--shape` picks one of the shapes chip_smoke.py drives (`main_path.SHAPES`),
+all with 2 bounces: `main` (1440 faces, spp 1; B1 and B3, the default),
+`mid` (5288 faces, spp 1; B1 and B5), `reference` (the reference-realistic
+shape: 11538 faces, spp 4, coherent bounce, shared primary; B2 and B4), and
+with tile culling off `main_unculled` (B6 and B3) and `reference_unculled`
+(B7s and B7g).
 Profiles one forward batch (`render_batch` under no_grad) and one
 pattern-step variant, each after a warm-up, and prints for each:
 
@@ -34,12 +36,14 @@ from fireflies_tpu_torch import main_path
 
 # Substrings of the hand-written kernels' names, demangled or mangled.
 KERNEL_NAMES = {
-    "B1 intersect_shared_culled": ("intersect_shared_culled_kernel",),
+    "B1 intersect_shared_culled": ("intersect_shared_kernel<true>", "intersect_shared_kernelILb1E"),
     "B3 intersect_general": ("intersect_general_kernel",),
-    "B2 intersect_stream_culled": ("stream_culled_kernel<false>", "stream_culled_kernelILb0E"),
-    "B4 intersect_stream_general_culled": ("stream_culled_kernel<true>",
-                                           "stream_culled_kernelILb1E"),
+    "B2 intersect_stream_culled": ("stream_kernel<false, true>", "stream_kernelILb0ELb1E"),
+    "B4 intersect_stream_general_culled": ("stream_kernel<true, true>", "stream_kernelILb1ELb1E"),
     "B5 intersect_general_culled": ("intersect_general_culled_kernel",),
+    "B6 intersect_shared": ("intersect_shared_kernel<false>", "intersect_shared_kernelILb0E"),
+    "B7s intersect_stream": ("stream_kernel<false, false>", "stream_kernelILb0ELb0E"),
+    "B7g intersect_stream_general": ("stream_kernel<true, false>", "stream_kernelILb1ELb0E"),
 }
 
 

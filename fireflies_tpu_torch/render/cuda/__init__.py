@@ -15,6 +15,9 @@ KERNELS = {
     "intersect_stream_culled": intersect_stream.KERNEL,
     "intersect_stream_general_culled": intersect_stream.KERNEL_GENERAL,
     "intersect_general_culled": intersect_general_culled.KERNEL,
+    "intersect_shared": intersect_kernel.KERNEL_SHARED,
+    "intersect_stream": intersect_stream.KERNEL_UNCULLED,
+    "intersect_stream_general": intersect_stream.KERNEL_UNCULLED_GENERAL,
 }
 
 __all__ = ["KERNELS", "intersect_culled", "intersect_general_culled", "intersect_kernel",

@@ -26,15 +26,11 @@ import torch
 
 from fireflies_tpu_torch._build import Kernel, check_cuda, ptr, stream_of, tested_ptr
 from fireflies_tpu_torch.render.cuda.intersect_kernel import (
-    _BIG,
-    _EPS_BARY,
-    FACE_BLOCK,
     LANES,
     RAY_TILE,
-    _carry_min,
-    live_ray_blocks,
     pack_dirs,
     pack_triangles_woop,
+    woop_hits_plain,
 )
 
 Tensor = torch.Tensor
@@ -153,61 +149,6 @@ def listed_mask(lists: Tensor, counts: Tensor) -> Tensor:
     pos = torch.arange(nc, device=lists.device)
     mask = torch.zeros(lists.shape, dtype=torch.bool, device=lists.device)
     return mask.scatter_(-1, lists.long(), pos < counts)
-
-
-def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: Tensor,
-                    t_min: float, chunk: int):
-    """The division-free Woop test of the culled kernels as a blocked
-    broadcast over (rays, faces), restricted to the clusters of `chunk`
-    faces on each ray's tile list (`listed`, (B, T, NC) bool); closest hit
-    by argmin.  `rays_soa` is (B, 3, R/128, 128) directions from a shared
-    origin, with woop rows 9-11 holding o' = W (o - v0), or (B, 6, R/128,
-    128) origins and directions, with rows 9-11 holding W v0 and
-    o'_k = W_k . o - (W v0)_k formed per pair.  Returns (t, prim), each
-    (B, R); prim = -1 on a miss."""
-    b, n_comp = rays_soa.shape[:2]
-    general = n_comp == 6
-    r = tmax_tiles[0].numel()
-    rays = rays_soa.reshape(b, n_comp, r)
-    tmax = tmax_tiles.reshape(b, r)
-    out_t = torch.zeros(b, r, dtype=torch.float32, device=rays.device)
-    out_p = torch.full((b, r), -1, dtype=torch.int32, device=rays.device)
-    n_face = woop.shape[2]
-    face_cluster = torch.arange(n_face, device=rays.device) // chunk
-    for bi, idx in live_ray_blocks(tmax):
-        ray = [rays[bi, k, idx, None] for k in range(n_comp)]
-        dx, dy, dz = ray[-3:]
-        tm = tmax[bi, idx, None]
-        tile = idx // RAY_TILE
-        best_t = torch.full_like(tm[:, 0], _BIG)
-        best_p = torch.full(best_t.shape, -1, dtype=torch.int32, device=best_t.device)
-        for f0 in range(0, n_face, FACE_BLOCK):
-            on_list = listed[bi][tile[:, None], face_cluster[None, f0:f0 + FACE_BLOCK]]
-            if not bool(on_list.any()):
-                continue  # no ray of the block lists these faces
-            (w00, w01, w02, w10, w11, w12, w20, w21, w22, opx, opy, opz) = (
-                woop[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(12))
-            if general:
-                ox, oy, oz = ray[:3]
-                opx = w00 * ox + w01 * oy + w02 * oz - opx
-                opy = w10 * ox + w11 * oy + w12 * oz - opy
-                opz = w20 * ox + w21 * oy + w22 * oz - opz
-            dpx = w00 * dx + w01 * dy + w02 * dz
-            dpy = w10 * dx + w11 * dy + w12 * dz
-            dpz = w20 * dx + w21 * dy + w22 * dz
-            sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
-            dn = dpz * sgn
-            tn = -opz * sgn
-            u_n = opx * dn + tn * dpx
-            v_n = opy * dn + tn * dpy
-            ok = (on_list & (dn > 1e-12) & (u_n >= -_EPS_BARY * dn)
-                  & (v_n >= -_EPS_BARY * dn) & (u_n + v_n <= (1.0 + _EPS_BARY) * dn)
-                  & (tn > t_min * dn) & (tn < tm * dn))
-            t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
-            best_t, best_p = _carry_min(t, f0, best_t, best_p)
-        out_t[bi, idx] = torch.where(best_p >= 0, best_t, 0.0)
-        out_p[bi, idx] = best_p
-    return out_t, out_p
 
 
 def intersect_culled_packed_plain(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor,

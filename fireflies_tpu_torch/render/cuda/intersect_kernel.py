@@ -1,14 +1,19 @@
-"""General-origin ray/triangle intersection: the CUDA kernel's wrapper, its
-plain PyTorch version, and the packing helpers.
+"""The resident kernels without tile lists: the CUDA kernels' wrappers,
+their plain PyTorch versions, and the packing helpers.
 
-Counterpart of fireflies_tpu/render/pallas/intersect_kernel.py
-(`intersect_pallas`); the kernel itself is `csrc/intersect_general.cu`.
-Layouts follow the reference with a leading variant axis B:
+Counterpart of fireflies_tpu/render/pallas/intersect_kernel.py:
+`intersect_pallas` (B3, general origins; `csrc/intersect_general.cu`) and
+`intersect_pallas_shared` (B6, a shared origin, every cluster in one
+front-to-back order; `csrc/intersect_shared.cu`).  Layouts follow the
+reference with a leading variant axis B:
 
   rays  (B, 6, R/128, 128) f32  origin xyz rows 0-2, direction rows 3-5
+  dirs  (B, 3, R/128, 128) f32  directions from a shared origin
   tmax  (B, R/128, 128) f32     tmax < 0 marks a dead ray (retired/padding)
   tri   (B, 9, Tpad) f32        v0, e1, e2 of Morton-ordered faces
+  woop  (B, 12, Tpad) f32       Woop rows W0, W1, W2 and o' (shared origin)
   boxes (B, 6, NC) f32          per-cluster AABB (min xyz, max xyz)
+  order (B, NC) int32           B6's front-to-back cluster order
 
 R is padded to whole 2048-ray tiles with d = (0, 0, 1), tmax = -1; Tpad to
 whole clusters of `chunk` faces with zero (never-hit) triangles.
@@ -39,6 +44,13 @@ _EPS_BARY = 1e-6
 RAY_BLOCK = 16384
 FACE_BLOCK = 256
 
+KERNEL_SHARED = Kernel("ff_intersect_shared", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dirs tmax woop boxes
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # order out_t out_prim
+    ctypes.c_void_p,  # tested or null
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R Tpad NC chunk
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # t_min any_hit stream
+])
 KERNEL = Kernel("ff_intersect_general", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # rays tmax tri boxes
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out_t out_prim tested-or-null
@@ -247,6 +259,67 @@ def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: floa
     return out_t, out_p
 
 
+def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: Tensor | None,
+                    t_min: float, chunk: int):
+    """The division-free Woop test of the shared-origin and streamed
+    kernels as a blocked broadcast over (rays, faces), closest hit by
+    argmin.  With `listed` ((B, T, NC) bool, see
+    `intersect_culled.listed_mask`) a ray tests only the clusters of
+    `chunk` faces on its 2048-ray tile's list; without, every face.
+    `rays_soa` is (B, 3, R/128, 128) directions from a shared origin, with
+    woop rows 9-11 holding o' = W (o - v0), or (B, 6, R/128, 128) origins
+    and directions, with rows 9-11 holding W v0 and o'_k = W_k . o -
+    (W v0)_k formed per pair.  Returns (t, prim), each (B, R); prim = -1 on
+    a miss."""
+    b, n_comp = rays_soa.shape[:2]
+    general = n_comp == 6
+    r = tmax_tiles[0].numel()
+    rays = rays_soa.reshape(b, n_comp, r)
+    tmax = tmax_tiles.reshape(b, r)
+    out_t = torch.zeros(b, r, dtype=torch.float32, device=rays.device)
+    out_p = torch.full((b, r), -1, dtype=torch.int32, device=rays.device)
+    n_face = woop.shape[2]
+    face_cluster = torch.arange(n_face, device=rays.device) // chunk
+    for bi, idx in live_ray_blocks(tmax):
+        ray = [rays[bi, k, idx, None] for k in range(n_comp)]
+        dx, dy, dz = ray[-3:]
+        tm = tmax[bi, idx, None]
+        tile = idx // RAY_TILE
+        best_t = torch.full_like(tm[:, 0], _BIG)
+        best_p = torch.full(best_t.shape, -1, dtype=torch.int32, device=best_t.device)
+        for f0 in range(0, n_face, FACE_BLOCK):
+            on_list = None
+            if listed is not None:
+                on_list = listed[bi][tile[:, None], face_cluster[None, f0:f0 + FACE_BLOCK]]
+                if not bool(on_list.any()):
+                    continue  # no ray of the block lists these faces
+            (w00, w01, w02, w10, w11, w12, w20, w21, w22, opx, opy, opz) = (
+                woop[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(12))
+            if general:
+                ox, oy, oz = ray[:3]
+                opx = w00 * ox + w01 * oy + w02 * oz - opx
+                opy = w10 * ox + w11 * oy + w12 * oz - opy
+                opz = w20 * ox + w21 * oy + w22 * oz - opz
+            dpx = w00 * dx + w01 * dy + w02 * dz
+            dpy = w10 * dx + w11 * dy + w12 * dz
+            dpz = w20 * dx + w21 * dy + w22 * dz
+            sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
+            dn = dpz * sgn
+            tn = -opz * sgn
+            u_n = opx * dn + tn * dpx
+            v_n = opy * dn + tn * dpy
+            ok = ((dn > 1e-12) & (u_n >= -_EPS_BARY * dn)
+                  & (v_n >= -_EPS_BARY * dn) & (u_n + v_n <= (1.0 + _EPS_BARY) * dn)
+                  & (tn > t_min * dn) & (tn < tm * dn))
+            if on_list is not None:
+                ok &= on_list
+            t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
+            best_t, best_p = _carry_min(t, f0, best_t, best_p)
+        out_t[bi, idx] = torch.where(best_p >= 0, best_t, 0.0)
+        out_p[bi, idx] = best_p
+    return out_t, out_p
+
+
 def intersect_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: Tensor,
                            t_min: float, any_hit: bool = False, chunk: int = CHUNK):
     """Plain PyTorch version of the general-origin kernel (`mt_hits_plain`
@@ -258,8 +331,31 @@ def intersect_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, bo
     return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
 
 
+def cluster_order(boxes: Tensor) -> Tensor:
+    """(B, 6, NC) origin-shifted cluster boxes -> (B, NC) int32: every
+    cluster, nearest centre first, by a stable argsort of the centre's
+    squared distance from the origin, as `intersect_pallas_shared` orders
+    them.  B6 visits the clusters in this order, which decides which face
+    wins a t-tie."""
+    center = 0.5 * (boxes[:, 0:3] + boxes[:, 3:6])
+    dist2 = torch.sum(center * center, dim=1)
+    return torch.argsort(dist2, dim=-1, stable=True).to(torch.int32).contiguous()
+
+
+def intersect_shared_packed_plain(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor,
+                                  boxes: Tensor, order: Tensor, t_min: float,
+                                  any_hit: bool = False, chunk: int = CHUNK):
+    """Plain PyTorch version of the shared-origin kernel over every cluster
+    (`woop_hits_plain` without lists).  Any-hit returns the closest hit
+    too.  Returns (t, prim) shaped like `tmax_tiles`; prim = -1 on a
+    miss."""
+    del boxes, order, any_hit  # the AABB skip and the visiting order are optimisations
+    t, prim = woop_hits_plain(dirs_soa, tmax_tiles, woop, None, t_min, chunk)
+    return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
+
+
 # ---------------------------------------------------------------------------
-# Wrapper
+# Wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -307,4 +403,55 @@ def intersect_cuda(o: Tensor, d: Tensor, vertices: Tensor, faces: Tensor,
                                         torch.as_tensor(t_max).detach())
     t, prim = intersect_packed(rays_soa, tmax_tiles, tri, boxes, t_min, any_hit, chunk)
     b = o.shape[0]
+    return t.reshape(b, -1)[:, :n], prim.reshape(b, -1)[:, :n]
+
+
+def intersect_shared_packed(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, boxes: Tensor,
+                            t_min: float, any_hit: bool = False, chunk: int = CHUNK,
+                            order: Tensor | None = None, tested: Tensor | None = None):
+    """Shared-origin closest/any-hit over every cluster (B6) on packed
+    inputs: takes the front-to-back `cluster_order` unless given, then CPU
+    tensors take the plain version and CUDA tensors launch
+    `csrc/intersect_shared.cu` (one thread per ray, grid (R/256, B)) or
+    raise.  `tested` (see `_build.tested_ptr`) receives the kernel's per-ray
+    count of tested clusters."""
+    if order is None:
+        order = cluster_order(boxes)
+    if dirs_soa.device.type == "cpu":
+        if tested is not None:
+            raise ValueError("tested: only the CUDA kernel counts tested clusters")
+        return intersect_shared_packed_plain(dirs_soa, tmax_tiles, woop, boxes, order, t_min,
+                                             any_hit, chunk)
+    dev = dirs_soa.device
+    b, _, rows, _ = dirs_soa.shape
+    r = rows * LANES
+    n_face, nc = woop.shape[2], boxes.shape[2]
+    if r % RAY_TILE or n_face != nc * chunk:
+        raise ValueError(f"bad packing: R={r}, Tpad={n_face}, NC={nc}, chunk={chunk}")
+    check_cuda("dirs_soa", dirs_soa, torch.float32, (b, 3, rows, LANES), dev)
+    check_cuda("tmax_tiles", tmax_tiles, torch.float32, (b, rows, LANES), dev)
+    check_cuda("woop", woop, torch.float32, (b, 12, n_face), dev)
+    check_cuda("boxes", boxes, torch.float32, (b, 6, nc), dev)
+    check_cuda("order", order, torch.int32, (b, nc), dev)
+    KERNEL_SHARED.record(dirs_soa=dirs_soa, tmax_tiles=tmax_tiles, woop=woop, boxes=boxes,
+                         order=order, t_min=t_min, any_hit=any_hit, chunk=chunk)
+    out_t = torch.empty(b, rows, LANES, dtype=torch.float32, device=dev)
+    out_p = torch.empty(b, rows, LANES, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        KERNEL_SHARED.launch(ptr(dirs_soa), ptr(tmax_tiles), ptr(woop), ptr(boxes), ptr(order),
+                             ptr(out_t), ptr(out_p), tested_ptr(tested, tmax_tiles.shape, dev), b,
+                             r, n_face, nc, chunk, float(t_min), int(any_hit), stream_of(dev))
+    return out_t, out_p
+
+
+def intersect_cuda_shared(origin: Tensor, d: Tensor, vertices: Tensor, faces: Tensor,
+                          t_min: float = 1e-4, t_max=1e30, any_hit: bool = False,
+                          chunk: int = CHUNK):
+    """Shared-origin closest/any-hit over every cluster, front to back;
+    counterpart of `intersect_pallas_shared`.  origin (B, 3), d (B, N, 3).
+    Returns (t (B, N), prim (B, N) int32)."""
+    woop, boxes = pack_triangles_woop(vertices.detach(), faces, origin.detach(), chunk=chunk)
+    dirs_soa, tmax_tiles, n = pack_dirs(d.detach(), torch.as_tensor(t_max).detach())
+    t, prim = intersect_shared_packed(dirs_soa, tmax_tiles, woop, boxes, t_min, any_hit, chunk)
+    b = d.shape[0]
     return t.reshape(b, -1)[:, :n], prim.reshape(b, -1)[:, :n]

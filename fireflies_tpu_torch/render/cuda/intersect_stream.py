@@ -1,19 +1,22 @@
-"""Tile-culled Woop intersection for large scenes, with the triangle table
-streamed from device memory: the CUDA kernels' wrappers, their plain
-PyTorch versions and the packing.
+"""Woop intersection for large scenes, with the triangle table streamed
+from device memory: the CUDA kernels' wrappers, their plain PyTorch
+versions and the packing.
 
-Counterpart of fireflies_tpu/render/pallas/intersect_stream.py
-(`intersect_pallas_streamed_culled`, B2, and
-`intersect_pallas_streamed_general_culled`, B4); the kernels are
-`csrc/intersect_stream_culled.cu` and `csrc/intersect_stream_general_culled.cu`.
-Each 2048-ray tile walks its front-to-back cluster list
-(`intersect_culled.tile_cluster_lists` for a shared origin,
-`tile_cluster_lists_general` for per-ray origins), and each block copies the
-next listed cluster's 128 faces into shared memory while it tests the
-current one.  With `emit_attrs` the kernels also return the winning face's
+Counterpart of fireflies_tpu/render/pallas/intersect_stream.py.  With tile
+culling (`intersect_pallas_streamed_culled`, B2, and
+`intersect_pallas_streamed_general_culled`, B4; `csrc/intersect_stream_culled.cu`
+and `csrc/intersect_stream_general_culled.cu`) each 2048-ray tile walks its
+front-to-back cluster list (`intersect_culled.tile_cluster_lists` for a
+shared origin, `tile_cluster_lists_general` for per-ray origins); without
+(`intersect_pallas_streamed`, B7s, and `intersect_pallas_streamed_general`,
+B7g; `csrc/intersect_stream.cu` and `csrc/intersect_stream_general.cu`)
+every tile walks all clusters in index order.  Each block copies the next
+cluster's 128 faces into shared memory while it tests the current one.
+With `emit_attrs` the culled kernels also return the winning face's
 unnormalized plane normal (Woop row W2 = n / |n|^2) and material id (woop
 row 12), so the path tracer needs no attribute gather; a miss gets
-(0, 0, 1) and material 0.
+(0, 0, 1) and material 0.  The unculled kernels emit no attributes, as in
+the reference.
 
 Layouts, with a leading variant axis B:
   dirs   (B, 3, R/128, 128) f32 (shared origin) or rays (B, 6, R/128, 128)
@@ -21,7 +24,7 @@ Layouts, with a leading variant axis B:
   woop16 (B, 16, Tpad) f32, Tpad a multiple of 128: rows 0-8 W, rows 9-11 o'
          (shared origin) or W v0 (general), row 12 the material id, 13-15 zero
   boxes  (B, 6, NC) f32, origin-shifted for a shared origin, world otherwise
-  lists  (B, T, NC) int32, counts (B, T, 1) int32
+  lists  (B, T, NC) int32, counts (B, T, 1) int32 (culled kernels only)
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ from fireflies_tpu_torch.render.cuda.intersect_culled import (
     listed_mask,
     tile_cluster_lists,
     tile_cluster_lists_general,
-    woop_hits_plain,
 )
 from fireflies_tpu_torch.render.cuda.intersect_kernel import (
     LANES,
@@ -43,6 +45,7 @@ from fireflies_tpu_torch.render.cuda.intersect_kernel import (
     pack_dirs,
     pack_rays,
     pack_triangles_woop,
+    woop_hits_plain,
 )
 
 Tensor = torch.Tensor
@@ -62,6 +65,14 @@ _ARGS = [
 ]
 KERNEL = Kernel("ff_intersect_stream_culled", _ARGS)
 KERNEL_GENERAL = Kernel("ff_intersect_stream_general_culled", _ARGS)
+_ARGS_UNCULLED = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # rays tmax woop boxes
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out_t out_prim tested-or-null
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R Tpad NC
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # t_min any_hit stream
+]
+KERNEL_UNCULLED = Kernel("ff_intersect_stream", _ARGS_UNCULLED)
+KERNEL_UNCULLED_GENERAL = Kernel("ff_intersect_stream_general", _ARGS_UNCULLED)
 
 
 def pack_woop_streamed(vertices: Tensor, faces: Tensor, origin: Tensor | None,
@@ -108,9 +119,24 @@ def stream_culled_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop16: Ten
     return tuple(x.reshape(tmax_tiles.shape) for x in outs)
 
 
+def stream_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop16: Tensor, boxes: Tensor,
+                        t_min: float, any_hit: bool = False):
+    """Plain PyTorch version of both unculled streamed kernels:
+    `woop_hits_plain` over every face (shared origin for (B, 3, ...)
+    directions, general for (B, 6, ...) rays).  Any-hit returns the closest
+    hit too.  Returns (t, prim) shaped like `tmax_tiles`."""
+    del any_hit, boxes  # the AABB skip is an optimisation, not semantics
+    t, prim = woop_hits_plain(rays_soa, tmax_tiles, woop16, None, t_min, STREAM_CHUNK)
+    return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
+
+
 def _launch(kernel: Kernel, n_comp: int, rays_soa: Tensor, tmax_tiles: Tensor, woop16: Tensor,
-            boxes: Tensor, lists: Tensor, counts: Tensor, t_min: float, any_hit: bool,
-            emit_attrs: bool, tested: Tensor | None):
+            boxes: Tensor, t_min: float, any_hit: bool, tested: Tensor | None,
+            lists: Tensor | None = None, counts: Tensor | None = None,
+            emit_attrs: bool = False):
+    """Check the packed inputs and launch a streamed kernel: a culled one
+    with `lists` and `counts` (and optional attributes), an unculled one
+    without."""
     dev = rays_soa.device
     b, _, rows, _ = rays_soa.shape
     r = rows * LANES
@@ -122,15 +148,23 @@ def _launch(kernel: Kernel, n_comp: int, rays_soa: Tensor, tmax_tiles: Tensor, w
     check_cuda("tmax_tiles", tmax_tiles, torch.float32, (b, rows, LANES), dev)
     check_cuda("woop16", woop16, torch.float32, (b, WOOP_ROWS, n_face), dev)
     check_cuda("boxes", boxes, torch.float32, (b, 6, nc), dev)
-    check_cuda("lists", lists, torch.int32, (b, n_tiles, nc), dev)
-    check_cuda("counts", counts, torch.int32, (b, n_tiles, 1), dev)
     if woop16.data_ptr() % 16:
         raise ValueError("woop16: the kernel copies 16-byte vectors and needs 16-byte alignment")
+    out_t = torch.empty(b, rows, LANES, dtype=torch.float32, device=dev)
+    out_p = torch.empty(b, rows, LANES, dtype=torch.int32, device=dev)
+    if lists is None:
+        kernel.record(rays_soa=rays_soa, tmax_tiles=tmax_tiles, woop16=woop16, boxes=boxes,
+                      t_min=t_min, any_hit=any_hit)
+        with torch.cuda.device(dev):
+            kernel.launch(ptr(rays_soa), ptr(tmax_tiles), ptr(woop16), ptr(boxes), ptr(out_t),
+                          ptr(out_p), tested_ptr(tested, tmax_tiles.shape, dev), b, r, n_face, nc,
+                          float(t_min), int(any_hit), stream_of(dev))
+        return out_t, out_p
+    check_cuda("lists", lists, torch.int32, (b, n_tiles, nc), dev)
+    check_cuda("counts", counts, torch.int32, (b, n_tiles, 1), dev)
     kernel.record(rays_soa=rays_soa, tmax_tiles=tmax_tiles, woop16=woop16, boxes=boxes,
                   lists=lists, counts=counts, t_min=t_min, any_hit=any_hit,
                   emit_attrs=emit_attrs)
-    out_t = torch.empty(b, rows, LANES, dtype=torch.float32, device=dev)
-    out_p = torch.empty(b, rows, LANES, dtype=torch.int32, device=dev)
     attrs = []
     if emit_attrs:
         attrs = [torch.empty(b, rows, LANES, dtype=dt, device=dev)
@@ -162,8 +196,8 @@ def intersect_stream_culled_packed(rays_soa: Tensor, tmax_tiles: Tensor, woop16:
             raise ValueError("tested: only the CUDA kernel counts tested clusters")
         return stream_culled_packed_plain(rays_soa, tmax_tiles, woop16, boxes, lists, counts,
                                           t_min, any_hit, emit_attrs)
-    return _launch(KERNEL, 3, rays_soa, tmax_tiles, woop16, boxes, lists, counts, t_min,
-                   any_hit, emit_attrs, tested)
+    return _launch(KERNEL, 3, rays_soa, tmax_tiles, woop16, boxes, t_min, any_hit, tested,
+                   lists, counts, emit_attrs)
 
 
 def intersect_stream_general_culled_packed(rays_soa: Tensor, tmax_tiles: Tensor,
@@ -183,8 +217,39 @@ def intersect_stream_general_culled_packed(rays_soa: Tensor, tmax_tiles: Tensor,
             raise ValueError("tested: only the CUDA kernel counts tested clusters")
         return stream_culled_packed_plain(rays_soa, tmax_tiles, woop16, boxes, lists, counts,
                                           t_min, any_hit, emit_attrs)
-    return _launch(KERNEL_GENERAL, 6, rays_soa, tmax_tiles, woop16, boxes, lists, counts, t_min,
-                   any_hit, emit_attrs, tested)
+    return _launch(KERNEL_GENERAL, 6, rays_soa, tmax_tiles, woop16, boxes, t_min, any_hit,
+                   tested, lists, counts, emit_attrs)
+
+
+def intersect_stream_packed(rays_soa: Tensor, tmax_tiles: Tensor, woop16: Tensor, boxes: Tensor,
+                            t_min: float, any_hit: bool = False, tested: Tensor | None = None):
+    """Shared-origin streamed closest/any-hit over every cluster (B7s) on
+    packed inputs (`rays_soa` holds the (B, 3, R/128, 128) directions): CPU
+    tensors take the plain version, CUDA tensors launch
+    `csrc/intersect_stream.cu` (one thread per ray, grid (R/256, B)) or
+    raise.  Returns (t, prim) shaped like `tmax_tiles`.  `tested` (see
+    `_build.tested_ptr`) receives the kernel's per-ray count of tested
+    clusters."""
+    if rays_soa.device.type == "cpu":
+        if tested is not None:
+            raise ValueError("tested: only the CUDA kernel counts tested clusters")
+        return stream_packed_plain(rays_soa, tmax_tiles, woop16, boxes, t_min, any_hit)
+    return _launch(KERNEL_UNCULLED, 3, rays_soa, tmax_tiles, woop16, boxes, t_min, any_hit,
+                   tested)
+
+
+def intersect_stream_general_packed(rays_soa: Tensor, tmax_tiles: Tensor, woop16: Tensor,
+                                    boxes: Tensor, t_min: float, any_hit: bool = False,
+                                    tested: Tensor | None = None):
+    """General-origin streamed closest/any-hit over every cluster (B7g);
+    as `intersect_stream_packed` with (B, 6, R/128, 128) rays and
+    `csrc/intersect_stream_general.cu`."""
+    if rays_soa.device.type == "cpu":
+        if tested is not None:
+            raise ValueError("tested: only the CUDA kernel counts tested clusters")
+        return stream_packed_plain(rays_soa, tmax_tiles, woop16, boxes, t_min, any_hit)
+    return _launch(KERNEL_UNCULLED_GENERAL, 6, rays_soa, tmax_tiles, woop16, boxes, t_min,
+                   any_hit, tested)
 
 
 def _unpad(outs, b: int, n: int):
@@ -216,4 +281,26 @@ def intersect_cuda_streamed_general_culled(o: Tensor, d: Tensor, vertices: Tenso
     rays_soa, tmax_tiles, n = pack_rays(o.detach(), d.detach(), torch.as_tensor(t_max).detach())
     outs = intersect_stream_general_culled_packed(rays_soa, tmax_tiles, woop16, boxes, t_min,
                                                   any_hit, emit_attrs=face_mat is not None)
+    return _unpad(outs, o.shape[0], n)
+
+
+def intersect_cuda_streamed(origin: Tensor, d: Tensor, vertices: Tensor, faces: Tensor,
+                            t_min: float = 1e-4, t_max=1e30, any_hit: bool = False):
+    """Shared-origin closest/any-hit for large scenes over every cluster;
+    counterpart of `intersect_pallas_streamed`.  origin (B, 3), d (B, N, 3).
+    Returns (t, prim), each (B, N)."""
+    woop16, boxes = pack_woop_streamed(vertices.detach(), faces, origin.detach())
+    dirs_soa, tmax_tiles, n = pack_dirs(d.detach(), torch.as_tensor(t_max).detach())
+    outs = intersect_stream_packed(dirs_soa, tmax_tiles, woop16, boxes, t_min, any_hit)
+    return _unpad(outs, d.shape[0], n)
+
+
+def intersect_cuda_streamed_general(o: Tensor, d: Tensor, vertices: Tensor, faces: Tensor,
+                                    t_min: float = 1e-4, t_max=1e30, any_hit: bool = False):
+    """Per-ray-origin closest/any-hit for large scenes over every cluster;
+    counterpart of `intersect_pallas_streamed_general`.  o, d (B, N, 3).
+    Returns (t, prim), each (B, N)."""
+    woop16, boxes = pack_woop_streamed(vertices.detach(), faces, None)
+    rays_soa, tmax_tiles, n = pack_rays(o.detach(), d.detach(), torch.as_tensor(t_max).detach())
+    outs = intersect_stream_general_packed(rays_soa, tmax_tiles, woop16, boxes, t_min, any_hit)
     return _unpad(outs, o.shape[0], n)

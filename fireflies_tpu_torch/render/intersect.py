@@ -2,7 +2,8 @@
 fireflies_tpu/render/intersect.py).
 
 `closest_hit` and `occluded_any` dispatch by ray kind and face count to the
-kernel wrappers of `render/cuda`, with the reference's thresholds:
+kernel wrappers of `render/cuda`, with the reference's thresholds.  With
+tile culling (`tile_cull=True`, the default):
 
   faces                          shared origin      per-ray origins
   < GEN_CULL_MIN_FACES           B1 shared culled   B3 general
@@ -10,13 +11,22 @@ kernel wrappers of `render/cuda`, with the reference's thresholds:
                                  B1 shared culled   B5 general culled (chunk 64)
   > RESIDENT_MAX_FACES           B2 streamed culled B4 streamed general culled
 
-Rays sharing one origin per variant (`shared_origin` given) are camera
-rays and shadow rays reversed to start at a light.  Above
-RESIDENT_MAX_FACES a closest-hit call with `emit_attrs` takes the hit's
-plane normal and material id from the kernel; the other routes gather
-them (`_attrs_fallback`).  Each wrapper runs its plain PyTorch version on
-CPU tensors and its CUDA kernel on CUDA tensors.  `intersect_brute` and
-`occluded` are the independent reference scans.
+With `tile_cull=False`, the port's counterpart of the reference's
+FF_NO_TILE_CULL=1, no kernel walks per-tile lists:
+
+  faces                          shared origin      per-ray origins
+  <= RESIDENT_MAX_FACES          B6 shared          B3 general
+  > RESIDENT_MAX_FACES           B7s streamed       B7g streamed general
+
+B6 walks every 64-face cluster in one front-to-back order, B7s and B7g
+every 128-face cluster in index order.  Rays sharing one origin per variant
+(`shared_origin` given) are camera rays and shadow rays reversed to start
+at a light.  Above RESIDENT_MAX_FACES with tile culling, a closest-hit call
+with `emit_attrs` takes the hit's plane normal and material id from the
+kernel; every other route gathers them (`_attrs_fallback`).  Each wrapper
+runs its plain PyTorch version on CPU tensors and its CUDA kernel on CUDA
+tensors.  `intersect_brute` and `occluded` are the independent reference
+scans.
 
 Traversal is detached: the returned (t, prim) carry no gradient; the
 static-geometry path tracer takes positions from t along the (detached)
@@ -148,19 +158,43 @@ def _check_backend(backend: str) -> None:
 
 
 def _general(o: Tensor, d: Tensor, geometry: Geometry, t_min: float, t_max, any_hit: bool,
-             chunk: int):
-    """Per-ray-origin (t, prim) on the resident kernels: B5 from
-    GEN_CULL_MIN_FACES faces, else B3."""
-    if geometry.faces.shape[0] >= GEN_CULL_MIN_FACES:
+             chunk: int, tile_cull: bool):
+    """Per-ray-origin (t, prim) on the resident kernels: with tile culling
+    B5 from GEN_CULL_MIN_FACES faces, else B3."""
+    if tile_cull and geometry.faces.shape[0] >= GEN_CULL_MIN_FACES:
         return intersect_general_culled.intersect_cuda_general_culled(
             o, d, geometry.vertices, geometry.faces, t_min=t_min, t_max=t_max, any_hit=any_hit)
     return intersect_kernel.intersect_cuda(o, d, geometry.vertices, geometry.faces, t_min=t_min,
                                            t_max=t_max, any_hit=any_hit, chunk=chunk)
 
 
+def _shared_resident(shared_origin: Tensor, d: Tensor, geometry: Geometry, t_min: float, t_max,
+                     any_hit: bool, chunk: int, tile_cull: bool):
+    """Shared-origin (t, prim) on the resident kernels: B1 over the tile
+    lists at `chunk` faces a cluster, or without tile culling B6 at the
+    reference's 64."""
+    origin = _shared(shared_origin, d)
+    if not tile_cull:
+        return intersect_kernel.intersect_cuda_shared(
+            origin, d, geometry.vertices, geometry.faces, t_min=t_min, t_max=t_max,
+            any_hit=any_hit)
+    return intersect_culled.intersect_cuda_shared_culled(
+        origin, d, geometry.vertices, geometry.faces, t_min=t_min, t_max=t_max, any_hit=any_hit,
+        chunk=chunk)
+
+
 def _streamed(o: Tensor, d: Tensor, geometry: Geometry, t_min: float, t_max, any_hit: bool,
-              shared_origin: Tensor | None, face_mat: Tensor | None):
-    """(t, prim[, nx, ny, nz, mat]) on the streamed kernels (B2, B4)."""
+              shared_origin: Tensor | None, face_mat: Tensor | None, tile_cull: bool):
+    """(t, prim[, nx, ny, nz, mat]) on the streamed kernels: B2, B4 with
+    tile culling (attributes with `face_mat`), else B7s, B7g (never
+    attributes)."""
+    if not tile_cull:
+        if shared_origin is not None:
+            return intersect_stream.intersect_cuda_streamed(
+                _shared(shared_origin, d), d, geometry.vertices, geometry.faces, t_min=t_min,
+                t_max=t_max, any_hit=any_hit)
+        return intersect_stream.intersect_cuda_streamed_general(
+            o, d, geometry.vertices, geometry.faces, t_min=t_min, t_max=t_max, any_hit=any_hit)
     if shared_origin is not None:
         return intersect_stream.intersect_cuda_streamed_culled(
             _shared(shared_origin, d), d, geometry.vertices, geometry.faces, t_min=t_min,
@@ -174,30 +208,31 @@ def closest_hit(o: Tensor, d: Tensor, geometry: Geometry, t_min: float = 1e-4, t
                 tri_chunk: int = 512, backend: str = "auto",
                 shared_origin: Tensor | None = None, emit_attrs: bool = False,
                 shared_chunk: int = intersect_culled.CHUNK,
-                general_chunk: int = intersect_kernel.CHUNK) -> Hit:
+                general_chunk: int = intersect_kernel.CHUNK, tile_cull: bool = True) -> Hit:
     """Closest-hit dispatcher (see the module docstring for the routes).
     o, d: (B, N, 3); `shared_origin` (B, 3) when every ray of a variant
     starts there.  `backend` must be "auto" (else ValueError); `tri_chunk`
     is kept for signature parity and sizes nothing; `shared_chunk` and
-    `general_chunk` size B1's and B3's clusters (B2, B4 and B5 have fixed
-    ones).  With emit_attrs the Hit carries nx/ny/nz/mat."""
+    `general_chunk` size B1's and B3's clusters (B2, B4-B7 have fixed
+    ones).  `tile_cull=False` takes the routes without tile lists.  With
+    emit_attrs the Hit carries nx/ny/nz/mat."""
     del tri_chunk
     _check_backend(backend)
     if geometry.faces.shape[0] > RESIDENT_MAX_FACES:
-        t, prim, *attrs = _streamed(o, d, geometry, t_min, t_max, False, shared_origin,
-                                    geometry.face_mat if emit_attrs else None)
+        face_mat = geometry.face_mat if emit_attrs and tile_cull else None
+        t, prim, *attrs = _streamed(o, d, geometry, t_min, t_max, False, shared_origin, face_mat,
+                                    tile_cull)
         zeros = torch.zeros_like(t)
         hit = Hit(t=t, prim=prim, u=zeros, v=zeros, valid=prim >= 0)
         if attrs:
             nx, ny, nz, mat = attrs
             return hit.replace(nx=nx, ny=ny, nz=nz, mat=mat)
-        return hit
+        return _attrs_fallback(hit, geometry) if emit_attrs else hit
     if shared_origin is not None:
-        t, prim = intersect_culled.intersect_cuda_shared_culled(
-            _shared(shared_origin, d), d, geometry.vertices, geometry.faces,
-            t_min=t_min, t_max=t_max, chunk=shared_chunk)
+        t, prim = _shared_resident(shared_origin, d, geometry, t_min, t_max, False, shared_chunk,
+                                   tile_cull)
     else:
-        t, prim = _general(o, d, geometry, t_min, t_max, False, general_chunk)
+        t, prim = _general(o, d, geometry, t_min, t_max, False, general_chunk, tile_cull)
     zeros = torch.zeros_like(t)
     hit = Hit(t=t, prim=prim, u=zeros, v=zeros, valid=prim >= 0)
     return _attrs_fallback(hit, geometry) if emit_attrs else hit
@@ -207,17 +242,16 @@ def occluded_any(o: Tensor, d: Tensor, geometry: Geometry, t_min: float = 1e-4, 
                  tri_chunk: int = 512, backend: str = "auto",
                  shared_origin: Tensor | None = None,
                  shared_chunk: int = intersect_culled.CHUNK,
-                 general_chunk: int = intersect_kernel.CHUNK) -> Tensor:
+                 general_chunk: int = intersect_kernel.CHUNK, tile_cull: bool = True) -> Tensor:
     """Any-hit dispatcher (shadow rays); see closest_hit.  Returns (B, N)
     bool."""
     del tri_chunk
     _check_backend(backend)
     if geometry.faces.shape[0] > RESIDENT_MAX_FACES:
-        _, prim = _streamed(o, d, geometry, t_min, t_max, True, shared_origin, None)
+        _, prim = _streamed(o, d, geometry, t_min, t_max, True, shared_origin, None, tile_cull)
     elif shared_origin is not None:
-        _, prim = intersect_culled.intersect_cuda_shared_culled(
-            _shared(shared_origin, d), d, geometry.vertices, geometry.faces,
-            t_min=t_min, t_max=t_max, any_hit=True, chunk=shared_chunk)
+        _, prim = _shared_resident(shared_origin, d, geometry, t_min, t_max, True, shared_chunk,
+                                   tile_cull)
     else:
-        _, prim = _general(o, d, geometry, t_min, t_max, True, general_chunk)
+        _, prim = _general(o, d, geometry, t_min, t_max, True, general_chunk, tile_cull)
     return prim >= 0

@@ -120,10 +120,12 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
         # Dead-ray gating: retired paths carry t_max = -1, which the kernels
         # skip (all-dead tiles skip their cluster loops).
         if bounce == 0:
-            hit = closest_hit(o, d, geo, shared_origin=primary_origin, emit_attrs=True)
+            hit = closest_hit(o, d, geo, shared_origin=primary_origin, emit_attrs=True,
+                              tile_cull=config.tile_cull)
         else:
             tmax_b = torch.where(active, 1e30, -1.0)
-            hit = closest_hit(o, d, geo, t_max=tmax_b, emit_attrs=True)
+            hit = closest_hit(o, d, geo, t_max=tmax_b, emit_attrs=True,
+                              tile_cull=config.tile_cull)
 
         escaped = active & ~hit.valid
         radiance = radiance + throughput * background * torch.where(escaped, 1.0, 0.0)
@@ -155,7 +157,8 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
             seg_d = (shadow_o - positions[li][:, None, :]).detach()
             tmax_l = torch.where(lit, 1.0 - 1e-4, -1.0)
             blocked = occluded_any(shadow_o.detach(), seg_d, geo, t_min=1e-4, t_max=tmax_l,
-                                   shared_origin=positions[li].detach())
+                                   shared_origin=positions[li].detach(),
+                                   tile_cull=config.tile_cull)
             f = bsdf_mod.evaluate_v(params, ns, wo, wi_l)
             cos_i = ns.dot(wi_l).abs()
             radiance = radiance + throughput * f * rad_l * torch.where(lit & ~blocked, cos_i, 0.0)

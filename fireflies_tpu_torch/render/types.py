@@ -169,7 +169,10 @@ class RenderConfig(_Replace):
     envmap backgrounds, which trace_rays refuses.  `static_geometry` must be
     True: only the kernel-attribute route of the path tracer is ported.
     `backend` must be "auto" (else ValueError): the device of the tensors
-    picks the intersection route.
+    picks the intersection route.  `tile_cull=False` is the port's
+    counterpart of the reference's FF_NO_TILE_CULL=1: every ray cast takes
+    the kernels without per-tile cluster lists (B6, B3, B7; see
+    render/intersect.py); the default keeps the reference's default.
     """
 
     width: int = 256
@@ -190,6 +193,7 @@ class RenderConfig(_Replace):
     coherent_bounce: bool = False
     shared_primary: bool = False
     static_geometry: bool = False
+    tile_cull: bool = True
 
     def __post_init__(self):
         for name in _NOT_PORTED:

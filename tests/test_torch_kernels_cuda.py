@@ -1,7 +1,9 @@
-"""The CUDA intersection kernels against their plain PyTorch versions, on
-the card: B1 (shared culled), B3 (general), B2 and B4 (streamed culled,
-with emitted attributes) and B5 (general culled).  Marked `cuda`; skipped
-where torch.cuda.is_available() is false.  Run on a GPU machine with
+"""The CUDA kernels against their plain PyTorch versions, on the card: B1
+(shared culled), B3 (general), B2 and B4 (streamed culled, with emitted
+attributes), B5 (general culled), B6 (shared, every cluster front to back),
+B7s and B7g (streamed, every cluster) and the probe's FP32 throughput kernel X2
+(bit for bit).  Marked `cuda`; skipped where torch.cuda.is_available() is
+false.  Run on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from fireflies_tpu_torch import perf_probe
 from fireflies_tpu_torch.render.cuda import intersect_culled as ic
 from fireflies_tpu_torch.render.cuda import intersect_general_culled as igc
 from fireflies_tpu_torch.render.cuda import intersect_kernel as ik
@@ -134,6 +137,50 @@ def test_general_culled_kernel_matches_plain(dev, any_hit):
                                                           1e-4, any_hit), any_hit)
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_shared_kernel_matches_plain(dev, any_hit):
+    verts, faces, _, d, tmax = _inputs(dev, seed=8)
+    origin = torch.tensor([[0.0, 0.5, 4.0]] * 3, device=dev)
+    woop, boxes = ik.pack_triangles_woop(verts, faces, origin)
+    dirs, tm, _ = ik.pack_dirs(d, tmax)
+    order = ik.cluster_order(boxes)
+    before = ik.KERNEL_SHARED.launches
+    out = ik.intersect_shared_packed(dirs, tm, woop, boxes, 1e-4, any_hit, order=order)
+    assert ik.KERNEL_SHARED.launches == before + 1
+    _check(out, ik.intersect_shared_packed_plain(dirs, tm, woop, boxes, order, 1e-4, any_hit),
+           any_hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("general", [False, True])
+def test_stream_kernel_matches_plain(dev, general, any_hit):
+    verts, faces, o, d, tmax = _inputs(dev, seed=9)
+    if general:
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, None)
+        rays, tm, _ = ik.pack_rays(o, d, tmax)
+        fn, kernel = ist.intersect_stream_general_packed, ist.KERNEL_UNCULLED_GENERAL
+    else:
+        origin = torch.tensor([[0.0, 0.5, 4.0]] * 3, device=dev)
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, origin)
+        rays, tm, _ = ik.pack_dirs(d, tmax)
+        fn, kernel = ist.intersect_stream_packed, ist.KERNEL_UNCULLED
+    before = kernel.launches
+    out = fn(rays, tm, woop16, boxes, 1e-4, any_hit)
+    assert kernel.launches == before + 1 and len(out) == 2
+    _check(out, ist.stream_packed_plain(rays, tm, woop16, boxes, 1e-4, any_hit), any_hit)
+
+
+def test_vpu_probe_matches_plain_bitwise(dev):
+    x = perf_probe.vpu_input(dev)
+    before = perf_probe.VPU_KERNEL.launches
+    out = perf_probe.vpu_rounds(x)
+    assert perf_probe.VPU_KERNEL.launches == before + 1
+    plain = perf_probe.vpu_rounds_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain) and bool(torch.isfinite(out).all())
+    assert torch.unique(out).numel() > 1000
+
+
 def _occluder_scene(dev, n_variants=2, n_rays=4096):
     """A large quad (faces 0-1) in z = 0 with 126 small faces beside it fill
     the first 128-face cluster; 384 small faces lie far behind it.  Rays
@@ -186,6 +233,31 @@ def test_stream_any_hit_exits_with_copy_in_flight(dev, general):
            False)
 
 
+@pytest.mark.parametrize("general", [False, True])
+def test_unculled_stream_any_hit_exits_with_copy_in_flight(dev, general):
+    """B7s and B7g walk the clusters in index order, so the quad's cluster
+    (0) comes first and blocks every ray while cluster 1's copy is in
+    flight."""
+    verts, faces, o, d, tmax = _occluder_scene(dev)
+    if general:
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, None)
+        rays, tm, _ = ik.pack_rays(o, d, tmax)
+        fn = ist.intersect_stream_general_packed
+    else:
+        origin = torch.tensor([[0.0, 0.0, 4.0]] * 2, device=dev)
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, origin)
+        rays, tm, _ = ik.pack_dirs(d, tmax)
+        fn = ist.intersect_stream_packed
+    assert boxes.shape[2] >= 2
+    tested = torch.empty_like(tm, dtype=torch.int32)
+    out = fn(rays, tm, woop16, boxes, 1e-4, True, tested=tested)
+    _check(out, ist.stream_packed_plain(rays, tm, woop16, boxes, 1e-4, True), True)
+    assert bool((out[1] >= 0).all())
+    assert bool((tested == 1).all())
+    again = fn(rays, tm, woop16, boxes, 1e-4, False)
+    _check(again, ist.stream_packed_plain(rays, tm, woop16, boxes, 1e-4), False)
+
+
 def _tested_case(dev, kernel):
     """(wrapper, args, kwargs, listed clusters per ray) of one kernel on
     `_inputs`, with its tile lists prebuilt where it has them."""
@@ -196,6 +268,13 @@ def _tested_case(dev, kernel):
     if kernel == "B3":
         tri, boxes = ik.pack_triangles(verts, faces)
         return ik.intersect_packed, (rays, tm, tri, boxes, 1e-4), {}, boxes.shape[2]
+    if kernel == "B6":
+        woop, boxes = ik.pack_triangles_woop(verts, faces, origin)
+        return ik.intersect_shared_packed, (dirs, tm, woop, boxes, 1e-4), {}, boxes.shape[2]
+    if kernel in ("B7s", "B7g"):
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, origin if kernel == "B7s" else None)
+        fn = ist.intersect_stream_packed if kernel == "B7s" else ist.intersect_stream_general_packed
+        return fn, (dirs if kernel == "B7s" else rays, tm, woop16, boxes, 1e-4), {}, boxes.shape[2]
     if kernel in ("B1", "B2"):
         if kernel == "B1":
             table, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=ic.CHUNK)
@@ -217,7 +296,7 @@ def _tested_case(dev, kernel):
     return fn, (rays, tm, table, boxes, 1e-4), dict(lists=lists, counts=counts), per_ray
 
 
-@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5"])
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5", "B6", "B7s", "B7g"])
 def test_tested_counts_bounded_by_lists(dev, kernel):
     """The per-ray count of tested clusters that the pair-test bound is
     taken from: 0 on dead rays, at most the listed clusters, some tested,

@@ -58,7 +58,7 @@ def setup():
         return jb.assemble(p)
 
     def tc_assemble(b, copies=1):
-        p = from_jax_params(jp)
+        p = from_jax_params(jp, "cpu")
         p.update(tc_laser.rays_to_beam_params(b, 30.0, sigma=10.0, texture_size=(256, 256)))
         return tb.assemble([p] * copies)
 
@@ -149,7 +149,7 @@ def test_hello_world_render_matches():
     jp = {k: np.asarray(v) for k, v in js.compile()(jax.random.key(2), 0).items()}
     jscene = JxBridge(js, **kw).assemble({k: jnp.asarray(v) for k, v in jp.items()})
     ts, tkw = tc_scenes.hello_world()
-    tscene = TcBridge(ts, **tkw).assemble(from_jax_params(jp))
+    tscene = TcBridge(ts, **tkw).assemble(from_jax_params(jp, "cpu"))
     o, d, _ = jx_rays.camera_rays_tiled(jscene.camera, W, H, key=None)
     img_j = np.asarray(jx_pt.trace_rays(jscene, o, d, jax.random.key(0), _cfg("jax", 1),
                                         primary_origin=jscene.camera.to_world[:3, 3]))

@@ -74,7 +74,7 @@ def setup():
         return jb.assemble(p)
 
     def tc_assemble(b, copies=1):
-        p = from_jax_params(jp)
+        p = from_jax_params(jp, "cpu")
         p.update(tc_laser.rays_to_beam_params(b, 30.0, sigma=10.0, texture_size=(256, 256)))
         return tb.assemble([p] * copies)
 

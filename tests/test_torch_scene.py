@@ -71,7 +71,7 @@ def test_assemble_from_jax_params(bridges):
     jp.update(jx_laser.rays_to_beam_params(beams_j, 30.0, sigma=10.0, texture_size=(256, 256)))
     js_scene = jb.assemble(jp)
     host = {k: (v if isinstance(v, tuple) else np.asarray(v)) for k, v in jp.items()}
-    ts_scene = tb.assemble(from_jax_params(host))
+    ts_scene = tb.assemble(from_jax_params(host, "cpu"))
     pairs = {
         "vertices": (ts_scene.geometry.vertices[0], js_scene.geometry.vertices),
         "faces": (ts_scene.geometry.faces, js_scene.geometry.faces),
