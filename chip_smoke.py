@@ -14,7 +14,9 @@ with 2 bounces through `main_path.render_batch` / `pattern_step`
   * main_unculled and reference_unculled: main and the reference shape with
     tile culling off (`RenderConfig.tile_cull=False`, the reference's
     FF_NO_TILE_CULL=1): B6 and B3; B7s and B7g with the attribute gather.
-Then the probe's FP32 throughput kernel X2 and kernel roof.
+Then X1, the reference's parked matrix-unit intersection, through its own
+entry point on the camera rays of the main and reference shapes, and the
+probe's FP32 throughput kernel X2 and kernel roof.
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: the card's name and power limit; CUDA must be available;
@@ -40,7 +42,14 @@ Phases (each raises on failure, so any failure exits non-zero):
   7. probe: X2 (`perf_probe.vpu_roof`, its counter set to 0 just before and
      read just after) bit for bit against its plain version, its time,
      bound and rate of unfused FP32 operations; the kernel roof (B3 on a
-     workload where every pair is tested).
+     workload where every pair is tested);
+  8. mxu: X1 (`experiments.intersect_mxu.intersect_mxu_shared`, its counter
+     set to 0 just before and read just after) on 16 variants' camera rays
+     at 512x512 from the main and reference shapes, with t_max = 1e30 and
+     with a per-ray t_max that cuts about half the hits; each launch
+     replayed through the kernel and its plain version (2 variants),
+     closest and as any-hit, which must agree exactly; X1's prims against
+     B6's on the same rays; times and bound.
 Then one JSON line with the kernels, the nvidia-smi line, and the result
 line `{"ok": true, "device": {...}}` last.
 """
@@ -379,8 +388,124 @@ def probe_phase(dev) -> dict:
             "library_ms": None, "fp32_ops_per_s": rate}
 
 
+def mxu_phase(dev) -> dict:
+    """X1 through its entry point on the camera rays of the main and
+    reference shapes (16 variants, 512x512, jittered as the paths cast
+    them, the origin the camera): once with t_max = 1e30, once with a per-ray
+    t_max of each variant's median hit distance times 0.9-1.1, with X1's
+    counter set to 0 just before and read just after.  The per-ray result
+    must be the first one cut after the scan.  Each launch is replayed
+    through the kernel and its plain version (first 2 variants), closest and
+    as any-hit, and the two must agree exactly (both round every operation
+    alike).  X1's prims are held against B6's (`intersect_shared_packed`,
+    64-face clusters front to back) on the same rays: at most 1e-3 of the
+    live rays may differ, since the two tests round edges differently.
+    Times of X1, its plain version (on the t_max = 1e30 launches) and B6,
+    and X1's bound.  Returns X1's entry of the kernels line."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.experiments import intersect_mxu as mx  # noqa: PLC0415
+    from fireflies_tpu_torch.perf_probe import cuda_ms  # noqa: PLC0415
+    from fireflies_tpu_torch.render.cuda import intersect_kernel as ik  # noqa: PLC0415
+    from fireflies_tpu_torch.render.rays import camera_rays_tiled  # noqa: PLC0415
+
+    seeds = list(range(BATCH))
+    scenes = []
+    for tag in ("main", "reference"):
+        bridge, randomize, beams = main_path.build(dev, resolution=main_path.SHAPES[tag][0])
+        rs = main_path.scene_batch(bridge, randomize, beams, main_path.generators(seeds, dev))
+        _, d, _ = camera_rays_tiled(rs.camera, SIZE, SIZE, gens=main_path.generators(seeds, dev))
+        scenes.append((tag, rs.camera.to_world[:, :3, 3].contiguous(), d, rs.geometry.vertices,
+                       rs.geometry.faces))
+    torch.cuda.synchronize()
+
+    mx.KERNEL.launches = 0
+    mx.KERNEL.recorded = []
+    with torch.no_grad():
+        outs = []
+        for tag, cam, d, verts, faces in scenes:
+            t, prim = mx.intersect_mxu_shared(cam, d, verts, faces)
+            u = torch.rand(d.shape[:2], device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+            median = torch.where(prim >= 0, t, torch.nan).nanmedian(dim=1, keepdim=True).values
+            t_max = median * (0.9 + 0.2 * u)
+            outs.append((tag, faces.shape[0], t, prim, t_max,
+                         mx.intersect_mxu_shared(cam, d, verts, faces, t_max=t_max)))
+    torch.cuda.synchronize()
+    launches = mx.KERNEL.launches
+    recorded, mx.KERNEL.recorded = mx.KERNEL.recorded, None
+    if launches <= 0:
+        raise AssertionError("mxu: X1 was never launched")
+    for tag, n_faces, t, prim, t_max, (t_cut, p_cut) in outs:
+        kept = (prim >= 0) & (t < t_max)
+        n_hit = int((prim >= 0).sum())
+        log(f"[mxu/{tag}] {tuple(prim.shape)} rays: {n_hit} hit with t_max 1e30, "
+            f"{int(kept.sum())} with the per-ray t_max ({int(kept.sum()) / max(n_hit, 1):.3f})")
+        if not torch.isfinite(t).all() or n_hit == 0 or int(prim.max()) >= n_faces:
+            raise AssertionError(f"mxu/{tag}: t not finite, no hit, or a prim out of range")
+        if not (torch.equal(p_cut, torch.where(kept, prim, -1))
+                and torch.equal(t_cut, torch.where(kept, t, 0.0))):
+            raise AssertionError(f"mxu/{tag}: the per-ray t_max is not the scan's result cut")
+
+    results = {}
+    for (tag, cam, d, verts, faces), pair in zip(scenes, (recorded[0:2], recorded[2:4])):
+        woop64, boxes64 = ik.pack_triangles_woop(verts, faces, cam, chunk=ik.CHUNK)
+        order = ik.cluster_order(boxes64)
+        for rec, cut in zip(pair, ("1e30", "per-ray")):
+            b6 = lambda rec=rec: ik.intersect_shared_packed(  # noqa: E731
+                rec["dirs_soa"], rec["tmax_tiles"], woop64, boxes64, rec["t_min"], order=order)
+            t6, p6 = b6()
+            for any_hit in (False, True):
+                case = f"mxu/{tag}/t_max {cut}/" + ("as-any" if any_hit else "closest")
+                rec = {**rec, "any_hit": any_hit}
+                rec_p = _first(rec, 2)
+                out_k = mx.intersect_mxu_packed(**rec)
+                plain = mx.intersect_mxu_packed_plain(**rec_p)
+                res = compare(case, [x[:2] for x in out_k], plain, any_hit)
+                if not all(torch.equal(k[:2], p) for k, p in zip(out_k, plain)):
+                    raise AssertionError(f"{case}: the kernel and its plain version differ")
+                res["ms"] = cuda_ms(lambda rec=rec: mx.intersect_mxu_packed(**rec), 20)
+                line = f"  {case}: kernel {res['ms']:.4f} ms ({BATCH} variants)"
+                if cut == "1e30" and not any_hit:
+                    res["plain_ms"] = cuda_ms(
+                        lambda rec=rec_p: mx.intersect_mxu_packed_plain(**rec), 2)
+                    res["b6_ms"] = cuda_ms(b6, 20)
+                    line += (f", plain {res['plain_ms']:.4f} ms (2 variants), "
+                             f"B6 {res['b6_ms']:.4f} ms")
+                tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
+                mx.intersect_mxu_packed(**rec, tested=tested)
+                res.update(bound(MXU, rec, 2, tested))
+                live = rec["tmax_tiles"] >= 0
+                differ = int(((out_k[1] != p6) & live).sum())
+                same = (out_k[1] == p6) & (p6 >= 0)
+                dt = float((out_k[0] - t6).abs()[same].max()) if bool(same.any()) else 0.0
+                res.update(b6_differ=differ, b6_max_dt=dt)
+                log(line + f", bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
+                    f"{res['pairs']:.4g} pairs tested of {res['listed_pairs']:.4g}; bound / kernel "
+                    f"{res['bound_ms'] / res['ms']:.3f}); against B6: {differ} of "
+                    f"{int(live.sum())} live rays differ, max |dt| {dt:.3g}")
+                if differ > 1e-3 * int(live.sum()):
+                    raise AssertionError(f"{case}: {differ} rays differ from B6")
+                results[case] = res
+
+    main, ref = results["mxu/main/t_max 1e30/closest"], results["mxu/reference/t_max 1e30/closest"]
+    any_hit = results["mxu/main/t_max 1e30/as-any"]
+    return {"name": MXU, "route": "cuda", "source": "fireflies_tpu_torch/csrc/intersect_mxu.cu",
+            "replaces": "experiments/intersect_mxu.py:253", "path": "mxu", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "plain_variants": 2,
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "tested_pairs": main["pairs"], "listed_pairs": main["listed_pairs"],
+            "library_ms": None, "any_hit_ms": any_hit["ms"],
+            "any_hit_bound_ms": any_hit["bound_ms"], "b6_ms": main["b6_ms"],
+            "reference_ms": ref["ms"], "reference_plain_ms": ref["plain_ms"],
+            "reference_bound_ms": ref["bound_ms"], "reference_b6_ms": ref["b6_ms"]}
+
+
 SIZE = 512
 BATCH = 16
+MXU = "intersect_mxu_shared"
 B1, B3 = "intersect_shared_culled", "intersect_general"
 B2, B4 = "intersect_stream_culled", "intersect_stream_general_culled"
 B5 = "intersect_general_culled"
@@ -468,6 +593,10 @@ def main() -> int:
             pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
         log(f"[{tag}] {time.perf_counter() - t_path:.1f} s")
 
+    t_mxu = time.perf_counter()
+    x1 = mxu_phase(dev)
+    log(f"[mxu] {time.perf_counter() - t_mxu:.1f} s")
+
     t_probe = time.perf_counter()
     x2 = probe_phase(dev)
     log(f"[probe] {time.perf_counter() - t_probe:.1f} s")
@@ -494,7 +623,7 @@ def main() -> int:
         if "lists_ms" in closest:
             entry["tile_lists_ms"] = closest["lists_ms"]
         kernels.append(entry)
-    kernels.append(x2)
+    kernels += [x1, x2]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

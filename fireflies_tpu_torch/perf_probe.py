@@ -71,11 +71,14 @@ VPU_KERNEL = Kernel("ff_vpu_probe", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_
 # the pair tests in csrc/ (multiplies, adds, subtractions, negations and
 # compares; the selects that keep the best hit not counted): the
 # shared-origin Woop test (B1, B2, B6, B7s), the general Woop test with o'
-# formed per pair (B4, B7g), and the rational Moller-Trumbore test (B3, B5).
+# formed per pair (B4, B7g), the rational Moller-Trumbore test (B3, B5), and
+# X1's Woop test with one division (15 for d' = W d, |d'_z| and its compare,
+# the reciprocal, -o'_z and its product, 4 for u and v, the sum u + v and 5
+# compares).
 OPS_PER_PAIR = {"intersect_shared_culled": 40, "intersect_stream_culled": 40,
                 "intersect_stream_general_culled": 58, "intersect_general": 62,
                 "intersect_general_culled": 62, "intersect_shared": 40, "intersect_stream": 40,
-                "intersect_stream_general": 58}
+                "intersect_stream_general": 58, "intersect_mxu_shared": 30}
 # H100 SXM FP32 outside the tensor cores: 67 TFLOP/s counts a fused
 # multiply-add as two operations.  The kernels are built with --fmad=false,
 # so each multiply, add and compare executes on its own: 33.5e12 a second.

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: B1
 (shared culled), B3 (general), B2 and B4 (streamed culled, with emitted
 attributes), B5 (general culled), B6 (shared, every cluster front to back),
-B7s and B7g (streamed, every cluster) and the probe's FP32 throughput kernel X2
-(bit for bit).  Marked `cuda`; skipped where torch.cuda.is_available() is
+B7s and B7g (streamed, every cluster), X1 (the reference's parked
+matrix-unit intersection, bit for bit) and the probe's FP32 throughput kernel
+X2 (bit for bit).  Marked `cuda`; skipped where torch.cuda.is_available() is
 false.  Run on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from fireflies_tpu_torch import perf_probe
+from fireflies_tpu_torch.experiments import intersect_mxu as mx
 from fireflies_tpu_torch.render.cuda import intersect_culled as ic
 from fireflies_tpu_torch.render.cuda import intersect_general_culled as igc
 from fireflies_tpu_torch.render.cuda import intersect_kernel as ik
@@ -170,6 +172,54 @@ def test_stream_kernel_matches_plain(dev, general, any_hit):
     _check(out, ist.stream_packed_plain(rays, tm, woop16, boxes, 1e-4, any_hit), any_hit)
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_mxu_kernel_matches_plain(dev, any_hit):
+    """X1 bit for bit against its plain version (both round each operation
+    alike) on 6000 rays, so the last 128-ray group is partly padding; the
+    entry point gives the packed call's rows."""
+    verts, faces, _, d, tmax = _inputs(dev, seed=10)
+    origin = torch.tensor([[0.0, 0.5, 4.0]] * 3, device=dev)
+    woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=mx.CHUNK)
+    dirs, tm, n = ik.pack_dirs(d, tmax)
+    before = mx.KERNEL.launches
+    out = mx.intersect_mxu_packed(dirs, tm, woop, boxes, 1e-4, any_hit)
+    assert mx.KERNEL.launches == before + 1
+    plain = mx.intersect_mxu_packed_plain(dirs, tm, woop, boxes, 1e-4, any_hit)
+    _check(out, plain, any_hit)
+    assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+    t, prim = mx.intersect_mxu_shared(origin, d, verts, faces, t_max=tmax, any_hit=any_hit)
+    assert torch.equal(prim, out[1].reshape(3, -1)[:, :n])
+    assert torch.equal(t, out[0].reshape(3, -1)[:, :n])
+
+
+def test_mxu_one_ray_opens_a_cluster_for_its_group(dev):
+    """Two clusters of 128 small faces seen from the origin, one down -z and
+    one along +x.  Every ray of the first two 128-ray groups looks down -z
+    (within 0.1 rad) but ray 5, which looks along +x: its vote makes all of
+    group 0 test both clusters, while group 1 tests only the first."""
+    rng = np.random.default_rng(11)
+    centres = np.concatenate([rng.uniform(-0.5, 0.5, (128, 3)) * [1, 1, 0.1] + [0, 0, -5],
+                              rng.uniform(-0.5, 0.5, (128, 3)) * [0.1, 1, 1] + [5, 0, 0]])
+    tris = rng.uniform(-0.05, 0.05, (256, 3, 3)) + centres[:, None]
+    verts = torch.as_tensor(tris.reshape(1, -1, 3), dtype=torch.float32, device=dev)
+    faces = torch.arange(768, device=dev).reshape(256, 3)
+    d = np.concatenate([rng.uniform(-0.1, 0.1, (256, 2)), -np.ones((256, 1))], -1)
+    d[5] = [1.0, 0.02, 0.01]
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32,
+                        device=dev)
+    origin = torch.zeros(1, 3, device=dev)
+    woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=mx.CHUNK)
+    dirs, tm, _ = ik.pack_dirs(d[None], 1e30)
+    tested = torch.full_like(tm, -1, dtype=torch.int32)
+    out = mx.intersect_mxu_packed(dirs, tm, woop, boxes, 1e-4, tested=tested)
+    plain = mx.intersect_mxu_packed_plain(dirs, tm, woop, boxes, 1e-4)
+    _check(out, plain, False)
+    assert torch.equal(out[1], plain[1])
+    tested = tested.reshape(-1)
+    assert bool((tested[:128] == 2).all()) and bool((tested[128:256] == 1).all())
+    assert bool((tested[256:] == 0).all())  # padding: dead
+
+
 def test_vpu_probe_matches_plain_bitwise(dev):
     x = perf_probe.vpu_input(dev)
     before = perf_probe.VPU_KERNEL.launches
@@ -271,6 +321,9 @@ def _tested_case(dev, kernel):
     if kernel == "B6":
         woop, boxes = ik.pack_triangles_woop(verts, faces, origin)
         return ik.intersect_shared_packed, (dirs, tm, woop, boxes, 1e-4), {}, boxes.shape[2]
+    if kernel == "X1":
+        woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=mx.CHUNK)
+        return mx.intersect_mxu_packed, (dirs, tm, woop, boxes, 1e-4), {}, boxes.shape[2]
     if kernel in ("B7s", "B7g"):
         woop16, boxes = ist.pack_woop_streamed(verts, faces, origin if kernel == "B7s" else None)
         fn = ist.intersect_stream_packed if kernel == "B7s" else ist.intersect_stream_general_packed
@@ -296,7 +349,7 @@ def _tested_case(dev, kernel):
     return fn, (rays, tm, table, boxes, 1e-4), dict(lists=lists, counts=counts), per_ray
 
 
-@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5", "B6", "B7s", "B7g"])
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5", "B6", "B7s", "B7g", "X1"])
 def test_tested_counts_bounded_by_lists(dev, kernel):
     """The per-ray count of tested clusters that the pair-test bound is
     taken from: 0 on dead rays, at most the listed clusters, some tested,

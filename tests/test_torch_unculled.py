@@ -164,7 +164,9 @@ def setup():
     jx_scene, kw = jx_scenes.vocalfold(resolution=24, n_anim_frames=4)
     jb = JxBridge(jx_scene, **kw)
     tb, _, _ = main_path.build("cpu")
-    jp = {k: np.asarray(v) for k, v in jx_scene.compile()(jax.random.key(5), 0).items()}
+    # Jitted: one compile instead of one per eager op; both packages get these
+    # same parameters.
+    jp = {k: np.asarray(v) for k, v in jax.jit(jx_scene.compile())(jax.random.key(5), 0).items()}
     beams = np.array(jx_laser.generate_uniform_rays(0.0275, 12, 12))
 
     def jx_image(b):
