@@ -50,8 +50,10 @@ Phases (each raises on failure, so any failure exits non-zero):
      replayed through the kernel and its plain version (2 variants),
      closest and as any-hit, which must agree exactly; X1's prims against
      B6's on the same rays; times and bound.
-Then one JSON line with the kernels, the nvidia-smi line, and the result
-line `{"ok": true, "device": {...}}` last.
+Then one JSON line with the kernels (each with its fused operations per
+tested pair, `ops_per_pair`; for X2 its unfused operations per element and
+round; the script fails if a kernel ran faster than its bound), the
+nvidia-smi line, and the result line `{"ok": true, "device": {...}}` last.
 """
 
 from __future__ import annotations
@@ -110,11 +112,13 @@ def bound(name: str, rec: dict, n_out: int, tested) -> dict:
     """The least time the card could take for one launch: the larger of
     its bytes (every input tensor read once, `n_out` 4-byte outputs per
     ray written once) over the memory rate, and its operations over the
-    rate of single FP32 operations (`perf_probe.PEAK_*`).  The operations
-    are the pairs the kernel tested on this launch's data (`tested`: per
-    live ray, the clusters its block tested after the block's slab vote) x
-    the faces of a cluster x `perf_probe.OPS_PER_PAIR`; the per-cluster slab
-    tests are left out.
+    rate of FP32 operations with a fused multiply-add as one
+    (`perf_probe.PEAK_*`).  The operations are the pairs the kernel tested
+    on this launch's data (`tested`: per live ray, the clusters its faces
+    were tested against after the slab test, its block's vote or, in B4 and
+    B7g, its own) x the faces of a cluster x
+    `perf_probe.OPS_PER_PAIR`, the fused count of its pair test; the
+    per-cluster slab tests are left out.
     Also the pairs on the tile lists (every cluster without lists), which
     the kernel tests at most."""
     import torch  # noqa: PLC0415
@@ -382,6 +386,7 @@ def probe_phase(dev) -> dict:
         f"(bound / kernel {kr['bound_ms'] / kr['ms']:.3f})")
     return {"name": "vpu_probe", "route": "cuda", "source": "fireflies_tpu_torch/csrc/vpu_probe.cu",
             "replaces": "tools/perf_probe.py:390", "path": "probe", "launches": launches,
+            "ops_per_pair": perf_probe.VPU_OPS_PER_ROUND,  # unfused, per element and round
             "max_abs_err": 0.0, "ms": roof["ms"], "plain_ms": roof["plain_ms"],
             "bound_ms": max(mem_ms, ops_ms),
             "bound_by": "bytes" if mem_ms > ops_ms else "operations",
@@ -406,7 +411,7 @@ def mxu_phase(dev) -> dict:
 
     from fireflies_tpu_torch import main_path  # noqa: PLC0415
     from fireflies_tpu_torch.experiments import intersect_mxu as mx  # noqa: PLC0415
-    from fireflies_tpu_torch.perf_probe import cuda_ms  # noqa: PLC0415
+    from fireflies_tpu_torch.perf_probe import OPS_PER_PAIR, cuda_ms  # noqa: PLC0415
     from fireflies_tpu_torch.render.cuda import intersect_kernel as ik  # noqa: PLC0415
     from fireflies_tpu_torch.render.rays import camera_rays_tiled  # noqa: PLC0415
 
@@ -493,6 +498,7 @@ def mxu_phase(dev) -> dict:
     any_hit = results["mxu/main/t_max 1e30/as-any"]
     return {"name": MXU, "route": "cuda", "source": "fireflies_tpu_torch/csrc/intersect_mxu.cu",
             "replaces": "experiments/intersect_mxu.py:253", "path": "mxu", "launches": launches,
+            "ops_per_pair": OPS_PER_PAIR[MXU],
             "max_abs_err": max(r["max_abs_err"] for r in results.values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "plain_variants": 2,
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -539,7 +545,7 @@ def main() -> int:
         return 1
 
     from fireflies_tpu_torch import _build, main_path  # noqa: PLC0415
-    from fireflies_tpu_torch.perf_probe import nvidia_smi  # noqa: PLC0415
+    from fireflies_tpu_torch.perf_probe import OPS_PER_PAIR, nvidia_smi  # noqa: PLC0415
 
     smi = nvidia_smi()
     dev = torch.device("cuda", 0)
@@ -611,6 +617,7 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "path": kernel_path[name], "launches": launches[name],
+            "ops_per_pair": OPS_PER_PAIR[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": closest["ms"], "plain_ms": closest["plain_ms"],
             "plain_variants": closest["plain_variants"],
@@ -624,6 +631,9 @@ def main() -> int:
             entry["tile_lists_ms"] = closest["lists_ms"]
         kernels.append(entry)
     kernels += [x1, x2]
+    over = [k["name"] for k in kernels if k["bound_ms"] > k["ms"]]
+    if over:
+        raise AssertionError(f"a kernel ran faster than its bound, so the bound is wrong: {over}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,7 +29,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "fireflies_tpu_torch"
 
 # --fmad=false: no contraction of a*b+c into one FMA, so the kernels round
-# exactly like the plain PyTorch versions' separate elementwise ops.
+# exactly like the plain PyTorch versions' separate elementwise ops.  The
+# general streamed kernel of csrc/intersect_stream.cuh (B4, B7g) fuses with
+# explicit __fmaf_rn, which the flag leaves alone; its plain version rounds
+# each of those steps once (`render.cuda.intersect_kernel.fma32`).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -142,7 +145,7 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def tested_ptr(tested: torch.Tensor | None, shape: tuple, device) -> ctypes.c_void_p | None:
     """The kernels' optional `tested` output: per ray, the clusters whose
-    faces its block tested (int32, shaped like tmax), which the pair-test
+    faces it was tested against (int32, shaped like tmax), which the pair-test
     bound of a launch is counted from.  None is a null pointer (not
     counted).  Only the kernels count: a CPU tensor raises."""
     if tested is None:

@@ -8,13 +8,16 @@
 // forms o'_k = W_k . o - (W v0)_k before the division-free Woop test.  Every
 // block walks all 128-face clusters in index order (not front to back, so
 // the running best prunes less than on B4's lists), double-buffering them
-// with cp.async; its slab vote skips a cluster's arithmetic.  No attributes
-// are emitted, as in the reference.  The body is intersect_stream.cuh.
+// with cp.async; a ray's own slab test skips a cluster's arithmetic for it.
+// No attributes are emitted, as in the reference.  The body is
+// intersect_stream.cuh.
 //
-// What bounds it on this card: arithmetic, about 58 float operations per
-// ray-triangle pair over the clusters each block tests (the shared-origin
-// test plus 18 for o'); the table stays in L2, and device memory traffic is
-// the rays in and (t, prim) out.
+// What bounds it on this card: the instructions the tested ray-triangle
+// pairs issue, 41 operations a pair counted with every product that feeds
+// an add fused into it; the table stays in L2, and device memory traffic is
+// the rays in and (t, prim) out.  It shares B4's kernel,
+// stream_general_kernel (explicit FMAs, each ray tested only against the
+// clusters its own slab test opens, no attributes in the walk).
 
 #include "intersect_stream.cuh"
 

@@ -11,12 +11,19 @@
 // (the tile's origin and direction boxes against each cluster box, front to
 // back from the tile's origins); a tile whose count is 0 (every ray dead)
 // issues no copy.  Plane normal and material id are emitted as in
-// intersect_stream_culled.cu.  The body is intersect_stream.cuh.
+// intersect_stream_culled.cu (miss: (0, 0, 1) and 0).  The body is
+// intersect_stream.cuh.
 //
-// What bounds it on this card: arithmetic, about 58 float operations per
-// ray-triangle pair over the clusters each block tests (the shared-origin
-// test plus 18 for o'); the table stays in L2 as there, and device memory traffic is the
-// rays in and the outputs out.
+// What bounds it on this card: the instructions the tested ray-triangle
+// pairs issue.  Counted with every product that feeds an add fused into it,
+// the pair test is 41 operations (the shared-origin test's 32 plus three
+// FMAs a row for o'); the table stays in L2 as there, and device memory
+// traffic is the rays in and the outputs out.  stream_general_kernel in
+// intersect_stream.cuh is built for that: its fused steps are explicit
+// FMAs, a ray is tested only against the clusters its own slab test opens
+// (the block's open rays are gathered and its warps share their tasks
+// evenly), and no attribute is carried through the walk (the winner's are
+// read once after it).
 
 #include "intersect_stream.cuh"
 

@@ -1,11 +1,12 @@
 """Kernel-level timings and measured roofs of the port on one NVIDIA GPU.
 
-    python -m fireflies_tpu_torch.perf_probe hitfrac|kernel|roofline|all [out.json]
+    python -m fireflies_tpu_torch.perf_probe <probe or all> [out.json]
 
 Counterpart of tools/perf_probe.py (`probe_hitfrac`, `probe_kernel`,
 `probe_roofline`; its `probe_step` needs the projector-texture route, which
-is not ported).  Each measurement prints one JSON line; with `out.json` they
-are also written there.  The card's name and power limit come first.
+is not ported).  The probes are hitfrac, kernel, roofline, sass and
+votes.  Each measurement prints one JSON line; with `out.json` they are
+also written there.  The card's name and power limit come first.
 
 Timing: CUDA events around `n` calls after one warm-up call (`cuda_ms`),
 the calls' mean.  A call is what a user pays for it: packing, tile lists
@@ -35,17 +36,30 @@ and kernel.  Every probe uses one variant of the vocalfold scene and
   (`tested_per_ray`), and the listed rate over the kernel roof
   (`x_kernel_roof_if_no_earlyout`; above 1 it measures what the slab vote
   and the running best skip).
+- sass: what the compiler made of every kernel: registers and spills
+  (the `-Xptxas -v` report of the build) and the instructions of its inner
+  loop by class (`cuobjdump -sass` on the built library, whose listing is
+  written beside it as `<library>.sass`), per tested face for the Woop
+  kernels.
+- votes: the bounce launch of the reference shape (B4) and of
+  reference_unculled (B7g), recorded from one forward batch of 16 variants
+  at 512x512: the fewest pairs a slab vote over each ray alone, each 32-ray
+  warp and each 256-ray block would open, beside the pairs the kernel
+  reports it tested.
 
-Needs a CUDA device.
+`all` runs hitfrac, kernel and roofline.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import torch
 
@@ -67,21 +81,36 @@ VPU_SHAPE = (2048, 1024)
 VPU_KERNEL = Kernel("ff_vpu_probe", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_void_p])
 
-# Float operations per tested (ray, triangle) pair, by kernel, counted from
-# the pair tests in csrc/ (multiplies, adds, subtractions, negations and
-# compares; the selects that keep the best hit not counted): the
-# shared-origin Woop test (B1, B2, B6, B7s), the general Woop test with o'
-# formed per pair (B4, B7g), the rational Moller-Trumbore test (B3, B5), and
-# X1's Woop test with one division (15 for d' = W d, |d'_z| and its compare,
-# the reciprocal, -o'_z and its product, 4 for u and v, the sum u + v and 5
-# compares).
-OPS_PER_PAIR = {"intersect_shared_culled": 40, "intersect_stream_culled": 40,
-                "intersect_stream_general_culled": 58, "intersect_general": 62,
-                "intersect_general_culled": 62, "intersect_shared": 40, "intersect_stream": 40,
-                "intersect_stream_general": 58, "intersect_mxu_shared": 30}
-# H100 SXM FP32 outside the tensor cores: 67 TFLOP/s counts a fused
-# multiply-add as two operations.  The kernels are built with --fmad=false,
-# so each multiply, add and compare executes on its own: 33.5e12 a second.
+# Operations per tested (ray, triangle) pair, by kernel: the least the card
+# must issue for the pair test of csrc/, counted from its source with every
+# multiply whose product feeds only an add fused with that add (one FMA),
+# and each other multiply, add, subtraction, negation, compare and the sign
+# select one operation; the selects that keep the best hit, shared loads and
+# slab tests not counted.
+#   Shared-origin Woop (B1, B2, B6, B7s), 32: d' = W d 9 (a multiply and two
+#   FMAs a row), the sign of d'_z 2 (compare, select), dn 1, tn = -o'_z sgn
+#   2, u_n = o'_x dn + tn d'_x and v_n 4 (a multiply and an FMA each), the
+#   products -eps dn, (1 + eps) dn, t_min dn, tmax dn, tn bdn, btn dn 6,
+#   u_n + v_n 1, and 7 compares (dn > 1e-12, u_n, v_n, the sum, t_min, tmax,
+#   the best hit).  Unfused: 40.
+#   General Woop (B4, B7g), 41: the shared test plus o'_k = W_k . o - (W v0)_k,
+#   three FMAs a row.  Unfused: 58.
+#   Rational Moller-Trumbore (B3, B5), 48: P = d x e2 and Q = T x e1 6 each
+#   (a multiply and an FMA a component), T = o - v0 3, det 3 and the dots
+#   of un, vn, tn 3 each (a multiply and two FMAs), their sign products 3,
+#   the sign 2, dn 1, eb 1 and -eb 1, dn + eb 1, un + vn 1, the products
+#   t_min dn, tmax dn, tn bdn, btn dn 4, and 7 compares.  Unfused: 62.
+#   X1 (intersect_mxu_shared), 22: d' = W d 9, |d'_z| and its compare 2,
+#   the reciprocal 1, t = -o'_z (1 / d'_z) 2, u = o'_x + t d'_x and v 2
+#   (one FMA each), u + v 1 and 5 compares.  Unfused: 30.
+OPS_PER_PAIR = {"intersect_shared_culled": 32, "intersect_stream_culled": 32,
+                "intersect_stream_general_culled": 41, "intersect_general": 48,
+                "intersect_general_culled": 48, "intersect_shared": 32, "intersect_stream": 32,
+                "intersect_stream_general": 41, "intersect_mxu_shared": 22}
+# H100 SXM FP32 outside the tensor cores: 67e12 FLOP/s counts a fused
+# multiply-add as two floating-point operations, so the card issues 33.5e12
+# FP32 operations a second with an FMA as one operation, the unit of
+# OPS_PER_PAIR and of X2's unfused count.
 PEAK_FP32_OPS = 67e12 / 2
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
@@ -414,10 +443,239 @@ def probe_roofline(device, size: int = 512, n_iter: int = 20) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# What the compiler made of the kernels (`sass`) and how wide a vote opens
+# clusters (`votes`)
+# ---------------------------------------------------------------------------
+
+# SASS opcode (the text before its first '.') -> the class it is counted in;
+# a predicated MOV counts as a select.
+_SASS_CLASSES = {
+    "FFMA": "ffma", "FMUL": "fmul", "FADD": "fadd", "FSETP": "fsetp", "FSEL": "select",
+    "SEL": "select", "FMNMX": "fminmax", "PLOP3": "plop3", "LDS": "lds", "LDG": "ldg",
+    "LDGSTS": "ldg", "LDC": "ldc", "ULDC": "ldc", "MOV": "mov",
+    **dict.fromkeys(("IADD3", "IMAD", "LOP3", "ISETP", "SHF", "LEA", "IABS", "IMNMX", "SGXT",
+                     "PRMT", "POPC", "FLO", "VIADD", "VIMNMX", "UIADD3", "UIMAD", "ULOP3",
+                     "USHF", "ULEA", "UISETP", "UMOV", "S2R", "S2UR", "CS2R"), "integer"),
+    **dict.fromkeys(("BRA", "BAR", "BSSY", "BSYNC", "WARPSYNC", "VOTE", "VOTEU", "EXIT", "NOP",
+                     "DEPBAR", "LDGDEPBAR", "YIELD"), "control"),
+}
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS_LABEL = re.compile(r"^\s*\.(L_x_\d+):")
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+# float32(1e-12), the floor of |d'_z| that every Woop pair test compares
+# with, as SASS prints the immediate (decimal or its bits): one such compare
+# per tested face.
+_PAIR_MARK = re.compile(r"9\.99999996004197\d*e-13|0x2b8cbccc", re.IGNORECASE)
+
+
+def sass_functions(text: str) -> dict[str, list[tuple]]:
+    """`cuobjdump -sass` output -> {mangled name: [(address, predicate,
+    opcode, operands, branch target address or None)]}."""
+    funcs = {}
+    parts = _SASS_FUNCTION.split(text)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        labels, pending, ins = {}, [], []
+        for line in body.splitlines():
+            m = _SASS_LABEL.match(line)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = _SASS_LINE.search(line)
+            if m:
+                addr = int(m.group(1), 16)
+                labels.update(dict.fromkeys(pending, addr))
+                pending = []
+                ins.append((addr, (m.group(2) or "").strip(), m.group(3), m.group(4).strip()))
+        resolved = []
+        for addr, pred, op, args in ins:
+            target = None
+            if op.split(".")[0] == "BRA":
+                m = re.search(r"\(\.(L_x_\d+)\)", args)
+                hexa = re.search(r"\b0x([0-9a-f]+)\b", args)
+                target = labels.get(m.group(1)) if m else int(hexa.group(1), 16) if hexa else None
+            resolved.append((addr, pred, op, args, target))
+        funcs[name] = resolved
+    return funcs
+
+
+def sass_class(pred: str, op: str) -> str:
+    base = op.split(".")[0]
+    if base == "MOV" and pred:
+        return "select"
+    return _SASS_CLASSES.get(base, "other")
+
+
+def _is_lds128(op: str) -> bool:
+    return op.startswith("LDS") and ".128" in op
+
+
+def inner_loop_counts(ins: list[tuple]) -> dict:
+    """Instructions of a function's innermost loop that holds 16-byte shared
+    loads (of the back edges, branches to an address at or before their
+    own, the shortest span with an LDS.128), counted by class, and per
+    tested face where the loop holds Woop pair tests (`faces`, its compares
+    against float32(1e-12)).  Empty when no such loop exists."""
+    spans = [[x for x in ins if target <= x[0] <= addr] for addr, *_, target in ins
+             if target is not None and target <= addr]
+    spans = [body for body in spans if any(_is_lds128(x[2]) for x in body)]
+    if not spans:
+        return {}
+    best = min(spans, key=len)
+    classes = dict(Counter(sass_class(pred, op) for _, pred, op, _, _ in best))
+    faces = sum(1 for _, _, op, args, _ in best
+                if op.startswith("FSETP") and _PAIR_MARK.search(args))
+    out = {"loop_instructions": len(best), "loop_faces": faces,
+           "loop_lds128": sum(1 for x in best if _is_lds128(x[2])), "loop_classes": classes}
+    if faces:
+        out["per_face"] = {c: n / faces for c, n in classes.items()}
+        out["per_face_total"] = len(best) / faces
+    return out
+
+
+def ptxas_resources(log: str) -> dict[str, dict]:
+    """The `-Xptxas -v` report -> {mangled name: registers, spill bytes}."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+        elif cur is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            cur.update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def probe_sass(device) -> list[dict]:
+    """Registers and spills of every kernel (`-Xptxas -v`) and the
+    instruction classes of its inner loop (`cuobjdump -sass` on the built
+    library; the whole listing is written beside it as `<library>.sass`)."""
+    del device  # the library is built for the card; nothing runs on it
+    from fireflies_tpu_torch import _build  # noqa: PLC0415
+    from fireflies_tpu_torch.profile_main import KERNEL_NAMES  # noqa: PLC0415
+
+    _build.load_library()
+    so = _build.library_path()
+    resources = ptxas_resources(so.with_suffix(".log").read_text())
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    so.with_suffix(".sass").write_text(text)
+    out = []
+    for name, ins in sorted(sass_functions(text).items()):
+        label = next((k for k, keys in KERNEL_NAMES.items() if any(x in name for x in keys)), name)
+        out.append(_emit(f"sass_{label.split()[0]}", function=name, kernel=label,
+                         instructions=len(ins), **resources.get(name, {}),
+                         **inner_loop_counts(ins)))
+    return out
+
+
+def slab_open(o: Tensor, d: Tensor, box: Tensor, t_min: float, tfar_ray: Tensor) -> Tensor:
+    """(rays, NC) bool: the kernels' slab test of each ray (o, d (N, 3))
+    against each cluster box (6, NC) in float32, as csrc/ forms it (without
+    the general streamed kernels' 1e-5 box padding), with tfar capped at
+    `tfar_ray` (N,)."""
+    tiny = d.abs() < 1e-30
+    inv = torch.where(tiny, torch.where(d < 0, -1e30, 1e30), 1.0 / torch.where(tiny, 1.0, d))
+    t0 = (box[:3].T[None] - o[:, None]) * inv[:, None]
+    t1 = (box[3:].T[None] - o[:, None]) * inv[:, None]
+    tnear = torch.minimum(t0, t1).amax(-1).clamp(min=t_min)
+    tfar = torch.minimum(torch.maximum(t0, t1).amin(-1), tfar_ray[:, None])
+    return tnear <= tfar
+
+
+def vote_widths(rec: dict, t: Tensor, prim: Tensor, widths=(1, 32, 256),
+                ray_chunk: int = 65536) -> dict[int, float]:
+    """Clusters a launch would test, summed over its live rays, if a vote
+    over each group of `widths` consecutive rays (1: each ray alone, 32: a
+    warp, 256: a block) opened a cluster for the group: a listed cluster (a
+    tile list's, or every cluster without lists) opens when the slab test of
+    some ray of the group passes with tfar capped at min(tmax, the ray's
+    final t).  The running best never falls below the final t, so these are
+    the fewest clusters each width could open.  `rec` holds a streamed or
+    resident launch's packed inputs (`Kernel.record`), `t` and `prim` its
+    outputs."""
+    rays_soa, tmax_tiles, boxes = rec["rays_soa"], rec["tmax_tiles"], rec["boxes"]
+    b, n_comp = rays_soa.shape[:2]
+    r = tmax_tiles[0].numel()
+    rays = rays_soa.reshape(b, n_comp, r)
+    tmax = tmax_tiles.reshape(b, r)
+    nc = boxes.shape[2]
+    if "lists" in rec:
+        listed = ic.listed_mask(rec["lists"], rec["counts"])
+    else:
+        listed = torch.ones(b, r // ik.RAY_TILE, nc, dtype=torch.bool, device=tmax.device)
+    tfar_ray = torch.where(prim.reshape(b, r) >= 0, torch.minimum(tmax, t.reshape(b, r)), tmax)
+    totals = dict.fromkeys(widths, 0.0)
+    for bi in range(b):
+        for s in range(0, r, ray_chunk):
+            d = rays[bi, n_comp - 3:, s:s + ray_chunk].T
+            o = rays[bi, :3, s:s + ray_chunk].T if n_comp == 6 else torch.zeros_like(d)
+            opened = slab_open(o, d, boxes[bi], rec["t_min"], tfar_ray[bi, s:s + ray_chunk])
+            n = d.shape[0]
+            opened &= listed[bi][torch.arange(s, s + n, device=d.device) // ik.RAY_TILE]
+            live = tmax[bi, s:s + n] >= 0
+            for w in widths:
+                groups = opened.reshape(n // w, w, nc).any(dim=1).sum(dim=1)
+                totals[w] += float((groups * live.reshape(n // w, w).sum(dim=1)).double().sum())
+    return totals
+
+
+# The general streamed kernels' bounce launches: (shape, kernel name, wrapper).
+_BOUNCE = (("reference", "intersect_stream_general_culled",
+            ist.intersect_stream_general_culled_packed),
+           ("reference_unculled", "intersect_stream_general",
+            ist.intersect_stream_general_packed))
+
+
+def _bounce_launch(shape: str, name: str, device, size: int, batch: int) -> dict:
+    """The inputs of kernel `name`'s first closest-hit launch in one forward
+    batch of `shape` (`Kernel.record`)."""
+    from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
+
+    resolution, shape_cfg = main_path.SHAPES[shape]
+    cfg = main_path.bench_config(size=size, **shape_cfg)
+    bridge, randomize, beams = main_path.build(device, resolution=resolution)
+    kernel = KERNELS[name]
+    kernel.recorded = []
+    with torch.no_grad():
+        main_path.render_batch(bridge, randomize, beams, list(range(batch)), cfg)
+    recorded, kernel.recorded = kernel.recorded, None
+    return next(x for x in recorded if not x["any_hit"])
+
+
+def probe_votes(device, size: int = 512, batch: int = 16) -> list[dict]:
+    """The bounce launch of the reference shape (B4) and of
+    reference_unculled (B7g), recorded from one forward batch: the pairs a
+    vote over 1, 32 and 256 rays would open at least (`vote_widths`),
+    beside the pairs the kernel reports it tested."""
+    out = []
+    for shape, name, wrapper in _BOUNCE:
+        rec = _bounce_launch(shape, name, device, size, batch)
+        tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
+        t, prim = wrapper(**rec, tested=tested)[:2]
+        faces = rec["woop16"].shape[2] // rec["boxes"].shape[2]
+        pairs = {w: n * faces for w, n in vote_widths(rec, t, prim).items()}
+        live = int((rec["tmax_tiles"] >= 0).sum())
+        out.append(_emit(f"votes_{shape}", kernel=name, live_rays=live,
+                         clusters=rec["boxes"].shape[2], ray_pairs=pairs[1], warp_pairs=pairs[32],
+                         block_pairs=pairs[256],
+                         kernel_tested_pairs=float(tested.double().sum()) * faces,
+                         warp_over_block=pairs[32] / pairs[256],
+                         ray_over_block=pairs[1] / pairs[256]))
+    return out
+
+
+PROBES = {"hitfrac": probe_hitfrac, "kernel": probe_kernel, "roofline": probe_roofline,
+          "sass": probe_sass, "votes": probe_votes}
+
+
 def main() -> None:
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
     out = sys.argv[2] if len(sys.argv) > 2 else None
-    if what not in ("hitfrac", "kernel", "roofline", "all"):
+    if what not in (*PROBES, "all"):
         raise SystemExit(__doc__.splitlines()[2].strip())
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe needs a CUDA device")
@@ -425,9 +683,8 @@ def main() -> None:
     print(f"# {nvidia_smi()} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t_all = time.perf_counter()
     records = []
-    for name, probe in (("hitfrac", probe_hitfrac), ("kernel", probe_kernel),
-                        ("roofline", probe_roofline)):
-        if what in (name, "all"):
+    for name, probe in PROBES.items():
+        if what == name or (what == "all" and name in ("hitfrac", "kernel", "roofline")):
             records += probe(dev)
     print(f"# total {time.perf_counter() - t_all:.1f} s", flush=True)
     if out:

@@ -38,12 +38,13 @@ from fireflies_tpu_torch import main_path
 KERNEL_NAMES = {
     "B1 intersect_shared_culled": ("intersect_shared_kernel<true>", "intersect_shared_kernelILb1E"),
     "B3 intersect_general": ("intersect_general_kernel",),
-    "B2 intersect_stream_culled": ("stream_kernel<false, true>", "stream_kernelILb0ELb1E"),
-    "B4 intersect_stream_general_culled": ("stream_kernel<true, true>", "stream_kernelILb1ELb1E"),
+    "B2 intersect_stream_culled": ("stream_kernel<true>", "stream_kernelILb1E"),
+    "B4 intersect_stream_general_culled": ("stream_general_kernel<true>",
+                                           "stream_general_kernelILb1E"),
     "B5 intersect_general_culled": ("intersect_general_culled_kernel",),
     "B6 intersect_shared": ("intersect_shared_kernel<false>", "intersect_shared_kernelILb0E"),
-    "B7s intersect_stream": ("stream_kernel<false, false>", "stream_kernelILb0ELb0E"),
-    "B7g intersect_stream_general": ("stream_kernel<true, false>", "stream_kernelILb1ELb0E"),
+    "B7s intersect_stream": ("stream_kernel<false>", "stream_kernelILb0E"),
+    "B7g intersect_stream_general": ("stream_general_kernel<false>", "stream_general_kernelILb0E"),
 }
 
 

@@ -259,6 +259,24 @@ def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: floa
     return out_t, out_p
 
 
+def fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """a * b + c of float32 tensors (broadcast) rounded once to float32, as
+    the card's fused multiply-add (`__fmaf_rn`) rounds it.  In float64 the
+    product is exact and the sum s is one rounding away from the exact sum;
+    rounding s to float32 again could land on the wrong side of a float32
+    midpoint.  So s is rounded to odd first: TwoSum gives the sum's rounding
+    error, and an inexact s with an even last bit steps to its neighbour on
+    the error's side.  Rounding that to float32 is correct, since 53 >= 24 +
+    2 bits, below float32's normal range too."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    inexact = err.abs() > 0  # not where s is infinite (err is NaN)
+    return torch.where(inexact & even, torch.nextafter(s, err * torch.inf), s).float()
+
+
 def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: Tensor | None,
                     t_min: float, chunk: int):
     """The division-free Woop test of the shared-origin and streamed
@@ -269,8 +287,11 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
     `rays_soa` is (B, 3, R/128, 128) directions from a shared origin, with
     woop rows 9-11 holding o' = W (o - v0), or (B, 6, R/128, 128) origins
     and directions, with rows 9-11 holding W v0 and o'_k = W_k . o -
-    (W v0)_k formed per pair.  Returns (t, prim), each (B, R); prim = -1 on
-    a miss."""
+    (W v0)_k formed per pair.  The general branch rounds as B4's and B7g's
+    kernel (`csrc/intersect_stream.cuh`): o'_k, d'_k, u_n and v_n as chains
+    of fused multiply-adds (`fma32`) in the kernel's order, every other
+    operation on its own.  Returns (t, prim), each (B, R); prim = -1
+    on a miss."""
     b, n_comp = rays_soa.shape[:2]
     general = n_comp == 6
     r = tmax_tiles[0].numel()
@@ -297,17 +318,25 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
                 woop[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(12))
             if general:
                 ox, oy, oz = ray[:3]
-                opx = w00 * ox + w01 * oy + w02 * oz - opx
-                opy = w10 * ox + w11 * oy + w12 * oz - opy
-                opz = w20 * ox + w21 * oy + w22 * oz - opz
-            dpx = w00 * dx + w01 * dy + w02 * dz
-            dpy = w10 * dx + w11 * dy + w12 * dz
-            dpz = w20 * dx + w21 * dy + w22 * dz
+                opx = fma32(w02, oz, fma32(w01, oy, fma32(w00, ox, -opx)))
+                opy = fma32(w12, oz, fma32(w11, oy, fma32(w10, ox, -opy)))
+                opz = fma32(w22, oz, fma32(w21, oy, fma32(w20, ox, -opz)))
+                dpx = fma32(w02, dz, fma32(w01, dy, w00 * dx))
+                dpy = fma32(w12, dz, fma32(w11, dy, w10 * dx))
+                dpz = fma32(w22, dz, fma32(w21, dy, w20 * dx))
+            else:
+                dpx = w00 * dx + w01 * dy + w02 * dz
+                dpy = w10 * dx + w11 * dy + w12 * dz
+                dpz = w20 * dx + w21 * dy + w22 * dz
             sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
             dn = dpz * sgn
             tn = -opz * sgn
-            u_n = opx * dn + tn * dpx
-            v_n = opy * dn + tn * dpy
+            if general:
+                u_n = fma32(opx, dn, tn * dpx)
+                v_n = fma32(opy, dn, tn * dpy)
+            else:
+                u_n = opx * dn + tn * dpx
+                v_n = opy * dn + tn * dpy
             ok = ((dn > 1e-12) & (u_n >= -_EPS_BARY * dn)
                   & (v_n >= -_EPS_BARY * dn) & (u_n + v_n <= (1.0 + _EPS_BARY) * dn)
                   & (tn > t_min * dn) & (tn < tm * dn))

@@ -9,7 +9,8 @@ false.  Run on a GPU machine with
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
 Tolerance: any-hit masks exact; closest-hit prim equal except at t-ties
-(1e-5 relative), t within 1e-5 relative where the prims agree, emitted
+(1e-5 relative), t within 1e-5 relative where the prims agree (B4 and B7g:
+equal, since the plain version rounds their fused steps alike), emitted
 normal and material equal where the prims agree.  The per-ray counts of
 tested clusters (`tested`) are exact integers: 0 on dead rays, never more
 than the ray's tile lists.
@@ -383,3 +384,103 @@ def test_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError, match="tested"):  # only the kernel counts tested clusters
         ik.intersect_packed(rays.cpu(), tm.cpu(), tri.cpu(), boxes.cpu(), 1e-4,
                             tested=torch.zeros_like(tm.cpu(), dtype=torch.int32))
+
+
+def _bounce_inputs(dev, seed, n_rays=6000, n_faces=500, n_variants=2):
+    """`_inputs` with ill-conditioned bounce rays: every other ray starts on
+    a random face (o' = W o - W v0 then cancels), the rest off the soup."""
+    verts, faces, o, d, tmax = _inputs(dev, seed, n_rays, n_faces, n_variants)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    on = torch.randint(0, n_faces, (n_variants, n_rays // 2), device=dev, generator=g)
+    bary = torch.rand(n_variants, n_rays // 2, 3, device=dev, generator=g)
+    bary = bary / bary.sum(-1, keepdim=True)
+    tri = torch.stack([verts[i][faces[on[i]]] for i in range(n_variants)])  # (B, N/2, 3, 3)
+    o = o.clone()
+    o[:, ::2] = (bary[..., None] * tri).sum(2)
+    return verts, faces, o, d, tmax
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", ["B4", "B7g"])
+def test_general_stream_kernels_round_as_plain(dev, kernel, any_hit):
+    """B4 and B7g on bounce rays that start on faces: the explicit fused
+    steps of the kernels and `fma32` in the plain version round alike, so
+    wherever the prims agree t is equal bit for bit; any-hit masks exact.
+    The count of differing prims (t-ties) is printed."""
+    verts, faces, o, d, tmax = _bounce_inputs(dev, seed=12)
+    woop16, boxes = ist.pack_woop_streamed(verts, faces, None)
+    rays, tm, _ = ik.pack_rays(o, d, tmax)
+    if kernel == "B4":
+        lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+        out = ist.intersect_stream_general_culled_packed(rays, tm, woop16, boxes, 1e-4, any_hit,
+                                                         lists=lists, counts=counts)
+        plain = ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4,
+                                               any_hit)
+    else:
+        out = ist.intersect_stream_general_packed(rays, tm, woop16, boxes, 1e-4, any_hit)
+        plain = ist.stream_packed_plain(rays, tm, woop16, boxes, 1e-4, any_hit)
+    _check(out, plain, any_hit)
+    if not any_hit:
+        same = (out[1] == plain[1]) & (plain[1] >= 0)
+        print(f"{kernel}: {int(((out[1] != plain[1]) & (tm >= 0)).sum())} prims differ, "
+              f"{int(same.sum())} hits agree")
+        assert torch.equal(out[0][same], plain[0][same])
+
+
+def test_general_culled_kernel_reads_winner_attributes(dev):
+    """B4 reads its winner's W2 row and material id after the walk: equal
+    to the plain gather at the kernel's own prim on every hit, (0, 0, 1)
+    and 0 on every miss."""
+    verts, faces, o, d, tmax = _bounce_inputs(dev, seed=13)
+    face_mat = torch.arange(faces.shape[0], device=dev) % 7
+    woop16, boxes = ist.pack_woop_streamed(verts, faces, None, face_mat)
+    rays, tm, _ = ik.pack_rays(o, d, tmax)
+    t, prim, nx, ny, nz, mat = ist.intersect_stream_general_culled_packed(
+        rays, tm, woop16, boxes, 1e-4, emit_attrs=True)
+    torch.cuda.synchronize()
+    b = prim.shape[0]
+    hit, idx = prim >= 0, prim.clamp(min=0).reshape(b, -1).long()
+    assert bool(hit.any()) and bool((~hit).any())
+    for got, row, miss in ((nx, 6, 0.0), (ny, 7, 0.0), (nz, 8, 1.0)):
+        want = torch.gather(woop16[:, row], 1, idx).reshape(prim.shape)
+        assert torch.equal(got[hit], want[hit]) and bool((got[~hit] == miss).all())
+    want = torch.gather(woop16[:, ist.MAT_ROW], 1, idx).reshape(prim.shape).to(torch.int32)
+    assert torch.equal(mat[hit], want[hit]) and bool((mat[~hit] == 0).all())
+
+
+@pytest.mark.parametrize("kernel", ["B4", "B7g"])
+def test_general_stream_tests_only_own_clusters(dev, kernel):
+    """Two clusters of 128 small faces seen from the origin, one down -z and
+    one along +x; every ray of the first 256-ray block looks down -z but ray
+    5, which looks along +x.  B4 and B7g test a ray only against the
+    clusters its own slab test opens: every live ray tests one cluster (ray
+    5 the +x one), where a vote of its warp or block would have tested both,
+    and no ray tests more clusters than its tile lists."""
+    rng = np.random.default_rng(11)
+    centres = np.concatenate([rng.uniform(-0.5, 0.5, (128, 3)) * [1, 1, 0.1] + [0, 0, -5],
+                              rng.uniform(-0.5, 0.5, (128, 3)) * [0.1, 1, 1] + [5, 0, 0]])
+    tris = rng.uniform(-0.05, 0.05, (256, 3, 3)) + centres[:, None]
+    verts = torch.as_tensor(tris.reshape(1, -1, 3), dtype=torch.float32, device=dev)
+    faces = torch.arange(768, device=dev).reshape(256, 3)
+    d = np.concatenate([rng.uniform(-0.1, 0.1, (256, 2)), -np.ones((256, 1))], -1)
+    d[5] = [1.0, 0.02, 0.01]
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32,
+                        device=dev)[None]
+    woop16, boxes = ist.pack_woop_streamed(verts, faces, None)
+    rays, tm, _ = ik.pack_rays(torch.zeros_like(d), d, 1e30)
+    tested = torch.full_like(tm, -1, dtype=torch.int32)
+    if kernel == "B4":
+        lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+        assert int(counts[0, 0, 0]) == 2
+        out = ist.intersect_stream_general_culled_packed(rays, tm, woop16, boxes, 1e-4,
+                                                         lists=lists, counts=counts,
+                                                         tested=tested)
+        plain = ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4)
+    else:
+        out = ist.intersect_stream_general_packed(rays, tm, woop16, boxes, 1e-4, tested=tested)
+        plain = ist.stream_packed_plain(rays, tm, woop16, boxes, 1e-4)
+    _check(out, plain, False)
+    assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+    tested = tested.reshape(-1)
+    assert bool((tested[:256] == 1).all())
+    assert bool((tested[256:] == 0).all())  # padding: dead

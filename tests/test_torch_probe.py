@@ -71,3 +71,89 @@ def test_listed_tests_on_vocalfold():
     bounce = perf_probe.listed_tests(rays, tm_g, boxes, ik.CHUNK) / n_rays
     padded = -(-faces.shape[0] // ik.CHUNK) * ik.CHUNK
     assert 0 < primary < faces.shape[0] and 0 < bounce <= padded
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN9ff_stream13stream_kernelILb1ELb1EEEvPKf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+.L_x_1:
+        /*0020*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+.L_x_2:
+        /*0040*/                   LDS.128 R8, [R2] ;
+        /*0050*/                   FFMA R5, R8, R3, -R9 ;
+        /*0060*/                   FMUL R6, R8, R3 ;
+        /*0070*/                   FSETP.GT.AND P0, PT, R5, 9.9999999600419720025e-13, PT ;
+        /*0080*/                   FSETP.GT.AND P1, PT, R6, 9.9999999600419720025e-13, P0 ;
+        /*0090*/              @P1  MOV R12, R5 ;
+        /*00a0*/                   FSEL R13, R6, R5, P1 ;
+        /*00b0*/                   IADD3 R2, R2, 0x10, RZ ;
+        /*00c0*/              @!P2 BRA `(.L_x_2) ;
+        /*00d0*/              @!P3 BRA 0x20 ;
+        /*00e0*/                   EXIT ;
+\t\tFunction : _Z9other_kernelPf
+        /*0000*/                   FADD R1, R1, R1 ;
+        /*0010*/                   EXIT ;
+"""
+
+_PTXAS = """== intersect_stream_general_culled.cu
+ptxas info    : Compiling entry function '_ZN9ff_stream13stream_kernelILb1ELb1EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN9ff_stream13stream_kernelILb1ELb1EEEvPKf
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 12288 bytes smem
+"""
+
+
+def test_sass_inner_loop_counts():
+    """The `sass` probe's reading of a listing: labels and hexadecimal
+    targets resolve, the innermost back edge over a 16-byte shared load is
+    the loop, its instructions are counted by class (a predicated MOV is a
+    select) and per tested face (compares with float32(1e-12)), and the
+    ptxas report gives registers and spills."""
+    funcs = perf_probe.sass_functions(_SASS)
+    name = "_ZN9ff_stream13stream_kernelILb1ELb1EEEvPKf"
+    assert set(funcs) == {name, "_Z9other_kernelPf"}
+    branches = [x[4] for x in funcs[name] if x[2] == "BRA"]
+    assert branches == [0x40, 0x20]
+    loop = perf_probe.inner_loop_counts(funcs[name])
+    assert loop["loop_instructions"] == 9 and loop["loop_faces"] == 2 and loop["loop_lds128"] == 1
+    assert loop["loop_classes"] == {"lds": 1, "ffma": 1, "fmul": 1, "fsetp": 2, "select": 2,
+                                    "integer": 1, "control": 1}
+    assert loop["per_face_total"] == 4.5 and loop["per_face"]["select"] == 1.0
+    assert perf_probe.inner_loop_counts(funcs["_Z9other_kernelPf"]) == {}
+    assert perf_probe.ptxas_resources(_PTXAS) == {
+        name: {"registers": 72, "spill_store_bytes": 8, "spill_load_bytes": 4}}
+
+
+def test_vote_widths_nest():
+    """The `votes` probe's counts on a soup's B4 launch (plain version):
+    a wider vote never opens fewer clusters, a block's vote is bounded by
+    the tile lists, and a single ray's count is its own slab tests against
+    the listed clusters."""
+    from fireflies_tpu_torch.render.cuda import intersect_culled as ic
+    from fireflies_tpu_torch.render.cuda import intersect_stream as ist
+
+    rng = np.random.default_rng(4)
+    verts = torch.as_tensor(rng.normal(size=(1, 400, 3)), dtype=torch.float32)
+    faces = torch.as_tensor(rng.integers(0, 400, size=(300, 3)))
+    o = torch.as_tensor(rng.normal(size=(1, 4096, 3)) * 3, dtype=torch.float32)
+    d = torch.as_tensor(rng.normal(size=(1, 4096, 3)), dtype=torch.float32)
+    d = d / d.norm(dim=-1, keepdim=True)
+    tmax = torch.as_tensor(rng.uniform(1.0, 8.0, size=(1, 4096)), dtype=torch.float32)
+    tmax[:, ::5] = -1.0
+    woop16, boxes = ist.pack_woop_streamed(verts, faces, None)
+    rays, tm, _ = ik.pack_rays(o, d, tmax)
+    lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+    rec = dict(rays_soa=rays, tmax_tiles=tm, woop16=woop16, boxes=boxes, lists=lists,
+               counts=counts, t_min=1e-4, any_hit=False)
+    t, prim = ist.stream_culled_packed_plain(**rec)[:2]
+    votes = perf_probe.vote_widths(rec, t, prim, ray_chunk=2048)
+    live = tm.reshape(-1) >= 0
+    listed = counts.expand(-1, -1, 2048).reshape(-1)
+    assert 0 < votes[1] < votes[32] <= votes[256] <= float(listed[live].sum())
+    tfar = torch.where(prim.reshape(-1) >= 0, torch.minimum(tmax[0], t.reshape(-1)), tmax[0])
+    opened = perf_probe.slab_open(o[0], d[0], boxes[0], 1e-4, tfar)
+    on_list = ic.listed_mask(lists, counts)[0][torch.arange(4096) // 2048]
+    assert votes[1] == float((opened & on_list)[live].sum())
