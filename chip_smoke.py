@@ -25,7 +25,9 @@ Phases (each raises on failure, so any failure exits non-zero):
   then for each path:
   3. kernels: the kernel launches of one forward batch recorded and
      replayed through the kernel and its plain PyTorch version, with times
-     and each launch's bound (from the pairs the kernel reports it tested).
+     and each launch's bound (from the pairs the kernel reports it tested)
+     beside its least-work bound (from the pairs its inputs need, whatever
+     implements them: `perf_probe.least_pairs`).
      On the main path every launch is replayed;
      on the other paths only the first launch of each (kernel, mode), and
      the plain version runs on the first 2 of the 16 variants (the kernel's
@@ -37,8 +39,8 @@ Phases (each raises on failure, so any failure exits non-zero):
   5. forward: `render_batch` with every launch counter set to 0 just before
      it and read just after: the path's kernels must have launched and no
      other; then renders/s (median of 5 timed batches);
-  6. pattern step (main, reference and reference_unculled): loss and the
-     (144, 3) beam gradient, seconds per step and peak device memory;
+  6. pattern step: loss and the (144, 3) beam gradient, seconds per step
+     and peak device memory;
   7. probe: X2 (`perf_probe.vpu_roof`, its counter set to 0 just before and
      read just after) bit for bit against its plain version, its time,
      bound and rate of unfused FP32 operations; the kernel roof (B3 on a
@@ -51,9 +53,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      closest and as any-hit, which must agree exactly; X1's prims against
      B6's on the same rays; times and bound.
 Then one JSON line with the kernels (each with its fused operations per
-tested pair, `ops_per_pair`; for X2 its unfused operations per element and
-round; the script fails if a kernel ran faster than its bound), the
-nvidia-smi line, and the result line `{"ok": true, "device": {...}}` last.
+tested pair, `ops_per_pair`, and for the nine intersection kernels
+`least_pairs` and `least_bound_ms`; for X2 its unfused operations per
+element and round; the script fails if a kernel ran faster than its bound),
+the nvidia-smi line, and the result line `{"ok": true, "device": {...}}`
+last.
 """
 
 from __future__ import annotations
@@ -123,6 +127,7 @@ def bound(name: str, rec: dict, n_out: int, tested) -> dict:
     the kernel tests at most."""
     import torch  # noqa: PLC0415
 
+    from fireflies_tpu_torch import perf_probe  # noqa: PLC0415
     from fireflies_tpu_torch.perf_probe import (  # noqa: PLC0415
         OPS_PER_PAIR,
         PEAK_BYTES,
@@ -135,9 +140,8 @@ def bound(name: str, rec: dict, n_out: int, tested) -> dict:
     b = tmax.shape[0]
     n_rays = tmax[0].numel()
     nbytes = sum(t.numel() * t.element_size() for t in tensors) + n_out * 4 * b * n_rays
-    table = rec.get("woop16", rec.get("woop", rec.get("tri")))
     nc = rec["boxes"].shape[2]
-    faces_per_cluster = table.shape[2] // nc
+    faces_per_cluster = perf_probe.faces_per_cluster(rec)
     if "counts" in rec:
         listed = rec["counts"].expand(b, n_rays // RAY_TILE, RAY_TILE).reshape(tmax.shape)
     else:
@@ -153,6 +157,19 @@ def bound(name: str, rec: dict, n_out: int, tested) -> dict:
             "bound_by": "bytes" if mem_ms > ops_ms else "operations",
             "pairs": pairs, "listed_pairs": float(listed.double().sum()) * faces_per_cluster,
             "bytes": nbytes}
+
+
+def least_bound(name: str, rec: dict, out) -> dict:
+    """The work a launch's inputs need whatever implements it: the pairs of
+    each live ray with the faces of the listed clusters its own slab test
+    opens, tfar capped at the kernel's own t (`perf_probe.least_pairs`),
+    and their operations over the card's FP32 rate.  Unlike the bound of
+    `bound`, a kernel that tests fewer pairs does not lower it."""
+    from fireflies_tpu_torch import perf_probe  # noqa: PLC0415
+
+    pairs = perf_probe.least_pairs(rec, out[0], out[1])
+    ms = pairs * perf_probe.OPS_PER_PAIR[name] / perf_probe.PEAK_FP32_OPS * 1e3
+    return {"least_pairs": pairs, "least_bound_ms": ms}
 
 
 def versions():
@@ -245,11 +262,14 @@ def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None)
             tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
             kernel_fn(**rec, tested=tested)
             res.update(bound(name, rec, len(out_k), tested))
+            res.update(least_bound(name, rec, out_k))
             line = (f"  {case}: kernel {res['ms']:.4f} ms ({res['variants']} variants), plain "
                     f"{res['plain_ms']:.4f} ms ({nv} variants), bound {res['bound_ms']:.4f} ms "
                     f"({res['bound_by']}; {res['pairs']:.4g} pairs tested of "
                     f"{res['listed_pairs']:.4g} listed; bound / kernel "
-                    f"{res['bound_ms'] / res['ms']:.3f})")
+                    f"{res['bound_ms'] / res['ms']:.3f}); least {res['least_pairs']:.4g} pairs, "
+                    f"{res['least_bound_ms']:.4f} ms (least / kernel "
+                    f"{res['least_bound_ms'] / res['ms']:.3f})")
             if lists_fn is not None and not replayed:
                 res["lists_ms"] = cuda_ms(lambda rec=rec: lists_fn(rec), 20)
                 line += f", tile lists {res['lists_ms']:.4f} ms"
@@ -481,6 +501,7 @@ def mxu_phase(dev) -> dict:
                 tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
                 mx.intersect_mxu_packed(**rec, tested=tested)
                 res.update(bound(MXU, rec, 2, tested))
+                res.update(least_bound(MXU, rec, out_k))
                 live = rec["tmax_tiles"] >= 0
                 differ = int(((out_k[1] != p6) & live).sum())
                 same = (out_k[1] == p6) & (p6 >= 0)
@@ -488,7 +509,8 @@ def mxu_phase(dev) -> dict:
                 res.update(b6_differ=differ, b6_max_dt=dt)
                 log(line + f", bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
                     f"{res['pairs']:.4g} pairs tested of {res['listed_pairs']:.4g}; bound / kernel "
-                    f"{res['bound_ms'] / res['ms']:.3f}); against B6: {differ} of "
+                    f"{res['bound_ms'] / res['ms']:.3f}); least {res['least_pairs']:.4g} pairs, "
+                    f"{res['least_bound_ms']:.4f} ms; against B6: {differ} of "
                     f"{int(live.sum())} live rays differ, max |dt| {dt:.3g}")
                 if differ > 1e-3 * int(live.sum()):
                     raise AssertionError(f"{case}: {differ} rays differ from B6")
@@ -503,6 +525,7 @@ def mxu_phase(dev) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"], "plain_variants": 2,
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "tested_pairs": main["pairs"], "listed_pairs": main["listed_pairs"],
+            "least_pairs": main["least_pairs"], "least_bound_ms": main["least_bound_ms"],
             "library_ms": None, "any_hit_ms": any_hit["ms"],
             "any_hit_bound_ms": any_hit["bound_ms"], "b6_ms": main["b6_ms"],
             "reference_ms": ref["ms"], "reference_plain_ms": ref["plain_ms"],
@@ -566,15 +589,15 @@ def main() -> int:
     seeds = list(range(BATCH))
     kres, launches, kernel_path = {}, {}, {}
     # (shape in main_path.SHAPES, kernels of the path, replay only the first
-    # launch of each (kernel, mode), plain versions' variants, pattern step)
+    # launch of each (kernel, mode), plain versions' variants)
     paths = [
-        ("main", (B1, B3), False, None, True),
-        ("reference", (B2, B4), True, 2, True),
-        ("mid", (B1, B5), True, 2, False),
-        ("main_unculled", (B6, B3), True, 2, False),
-        ("reference_unculled", (B7S, B7G), True, 2, True),
+        ("main", (B1, B3), False, None),
+        ("reference", (B2, B4), True, 2),
+        ("mid", (B1, B5), True, 2),
+        ("main_unculled", (B6, B3), True, 2),
+        ("reference_unculled", (B7S, B7G), True, 2),
     ]
-    for tag, expected, first_only, plain_nv, step in paths:
+    for tag, expected, first_only, plain_nv in paths:
         t_path = time.perf_counter()
         resolution, shape_cfg = main_path.SHAPES[tag]
         cfg = main_path.bench_config(size=SIZE, **shape_cfg)
@@ -595,8 +618,7 @@ def main() -> int:
             if name not in kernel_path:
                 kernel_path[name] = tag
                 launches[name] = counts[name]
-        if step:
-            pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
+        pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
         log(f"[{tag}] {time.perf_counter() - t_path:.1f} s")
 
     t_mxu = time.perf_counter()
@@ -623,9 +645,11 @@ def main() -> int:
             "plain_variants": closest["plain_variants"],
             "bound_ms": closest["bound_ms"], "bound_by": closest["bound_by"],
             "tested_pairs": closest["pairs"], "listed_pairs": closest["listed_pairs"],
+            "least_pairs": closest["least_pairs"], "least_bound_ms": closest["least_bound_ms"],
             "library_ms": None,
             "any_hit_ms": any_hit["ms"], "any_hit_plain_ms": any_hit["plain_ms"],
             "any_hit_bound_ms": any_hit["bound_ms"],
+            "any_hit_least_bound_ms": any_hit["least_bound_ms"],
         }
         if "lists_ms" in closest:
             entry["tile_lists_ms"] = closest["lists_ms"]

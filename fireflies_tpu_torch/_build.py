@@ -29,10 +29,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "fireflies_tpu_torch"
 
 # --fmad=false: no contraction of a*b+c into one FMA, so the kernels round
-# exactly like the plain PyTorch versions' separate elementwise ops.  The
-# general streamed kernel of csrc/intersect_stream.cuh (B4, B7g) fuses with
-# explicit __fmaf_rn, which the flag leaves alone; its plain version rounds
-# each of those steps once (`render.cuda.intersect_kernel.fma32`).
+# exactly like the plain PyTorch versions' separate elementwise ops.  B1, B3,
+# B4 and B7g fuse chosen steps with explicit __fmaf_rn, which the flag leaves
+# alone; their plain versions round each of those steps once
+# (`render.cuda.intersect_kernel.fma32`).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

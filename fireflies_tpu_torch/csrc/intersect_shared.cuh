@@ -9,24 +9,59 @@
 // d' = W d plus a division-free in-triangle test, with the best hit carried
 // as a rational (tn, dn = |d'_z|).
 //
-// The simple design: one thread per ray, 256 rays per block, grid
-// (R / 256, B).  A cluster's 12 Woop rows are staged in shared memory and
-// broadcast to all threads.  The block votes on each cluster's slab test
-// against every ray's running best (__syncthreads_or) and skips it together;
-// any-hit mode leaves the loop once every live ray of the block is blocked or
-// dead (__syncthreads_and).  Dead rays (tmax < 0) never hit.  `tested`,
-// unless null, gets each live ray's number of clusters whose faces its block
-// tested (0 for a dead ray), the count that the pair-test bound of a launch
-// is taken from.
+// What bounds it on this card: the instructions the tested pairs issue.
+// Counted with every product that feeds an add fused into it, the pair test
+// is 32 operations (40 unfused); the Woop table (48 bytes a face, 8192 faces
+// at most: 393 KB) stays in L2, so device memory traffic is the directions
+// in and (t, prim) out.  The design:
+//   * B1's fused steps are explicit __fmaf_rn (kFused; the build keeps
+//     --fmad=false): d'_k = fma(W_k2, dz, fma(W_k1, dy, W_k0 dx)) and
+//     u_n = fma(o'_x, dn, tn d'_x), v_n likewise, the order its plain
+//     version rounds alike (render/cuda/intersect_kernel.py,
+//     woop_hits_plain with fused=True).  B6 rounds every operation on its
+//     own, the same steps unfused: its parity with the reference's kernel
+//     is held to 1e-6 relative in t (tests/test_torch_unculled.py), which
+//     one fused rounding of a cancelling d'_z can exceed;
+//   * a block of 256 rays stages kBatchFaces faces at once (kK clusters of
+//     its walk), the 12 Woop rows of each copied from device memory with
+//     cp.async, 16 bytes a thread, with their boxes, into one of two
+//     buffers: while the block tests batch i it already copies batch i + 1,
+//     and a batch costs one barrier, not three a cluster.  A face's rows are
+//     read as 16-byte shared loads of four faces each;
+//   * camera and shadow rays are coherent, so each warp votes on each staged
+//     cluster's slab test (__any_sync) against its rays' running best and
+//     skips it together.  The boxes are not padded, unlike the general
+//     kernels' (where a ray decides alone): the shared origin can lie on a
+//     box's face, and a padded box then opens for rays that leave it, which
+//     cost B6 22% more tested pairs on main_unculled's camera launch
+//     (perf_probe launches, PERF.md).  In any-hit mode a
+//     blocked ray stops voting and a warp stops testing once all of its rays
+//     are blocked or dead (__all_sync); the block leaves the walk at the
+//     next batch barrier where every warp has stopped, and drains the copy
+//     it started.  In closest-hit mode a block whose rays are all dead
+//     leaves at once.
+// Dead rays (tmax < 0) never hit.  `tested`, unless null, gets each live
+// ray's number of clusters its warp tested (0 for a dead ray), the count
+// that the pair-test bound of a launch is taken from.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace ff_shared {
+
+using ff_copy::cp_async16;
+using ff_copy::cp_async4;
+using ff_copy::cp_async_commit;
+using ff_copy::cp_async_wait;
 
 constexpr int kThreads = 256;
 constexpr int kRayTile = 2048;
+constexpr int kRows = 12;          // W0, W1, W2, o'
+constexpr int kBatchFaces = 256;   // faces staged at once
+constexpr int kMinBlocks = 3;      // blocks an SM, which bounds the registers to 80
 constexpr float kBig = 3.0e38f;
 constexpr float kEpsBary = 1e-6f;
 
@@ -35,109 +70,175 @@ __device__ __forceinline__ float safe_inv(float x) {
   return 1.0f / x;
 }
 
+__device__ __forceinline__ float lane(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
 // kLists = true: `walk` holds lists (B, R / 2048, nc) and `counts`
 // (B, R / 2048) the listed lengths.  kLists = false: `walk` holds one order
-// (B, nc) of every cluster, `counts` is unused (null), and a block whose rays
-// are all dead skips the loop.
-template <bool kLists>
-__global__ void __launch_bounds__(kThreads)
+// (B, nc) of every cluster and `counts` is unused (null).  kFused: a * b + c
+// steps as one fused multiply-add, else rounded twice.
+template <bool kLists, bool kFused, int kChunk>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 intersect_shared_kernel(const float* __restrict__ dirs, const float* __restrict__ tmax_in,
                         const float* __restrict__ woop, const float* __restrict__ boxes,
                         const int* __restrict__ walk, const int* __restrict__ counts,
                         float* __restrict__ out_t, int* __restrict__ out_prim,
-                        int* __restrict__ tested, int R, int tpad, int nc, int chunk,
-                        float t_min, int any_hit) {
-  extern __shared__ float s_w[];  // [12][chunk]
+                        int* __restrict__ tested, int R, int tpad, int nc, float t_min,
+                        int any_hit) {
+  constexpr int kK = kBatchFaces / kChunk;  // clusters a batch
+  constexpr int kVec = kChunk / 4;
+  constexpr int kBatchFloats = kK * kRows * kChunk;
+  __shared__ __align__(16) float s_w[2 * kBatchFloats];  // [buffer][cluster][row][face]
+  __shared__ float s_box[2][6][kK];
+  __shared__ int s_cid[2][kK];
   const int b = blockIdx.y;
-  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int r = blockIdx.x * kThreads + tid;
   const int n_tiles = R / kRayTile;
   const int tile = (blockIdx.x * kThreads) / kRayTile;
   const float* dir = dirs + (size_t)b * 3 * R;
   const float dx = dir[r], dy = dir[R + r], dz = dir[2 * R + r];
   const float tmax = tmax_in[(size_t)b * R + r];
   const bool dead = tmax < 0.0f;
-  const float* w_b = woop + (size_t)b * 12 * tpad;
+  const float* w_b = woop + (size_t)b * kRows * tpad;
   const float* box_b = boxes + (size_t)b * 6 * nc;
   const int* list = kLists ? walk + ((size_t)b * n_tiles + tile) * nc : walk + (size_t)b * nc;
-  int n_listed = nc;
-  if (kLists) {
-    n_listed = __ldg(counts + (size_t)b * n_tiles + tile);
-  } else if (!any_hit && __syncthreads_and(dead)) {
-    n_listed = 0;
-  }
+  const int n_listed = kLists ? __ldg(counts + (size_t)b * n_tiles + tile) : nc;
   const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
+  auto mad = [](float a, float x, float c) { return kFused ? __fmaf_rn(a, x, c) : a * x + c; };
+
+  // Start copying the clusters at walk positions kK batch .. into buffer
+  // `buf`: their ids, boxes and Woop rows.
+  auto fill = [&](int batch, int buf) {
+    const int ci0 = batch * kK, nb = min(kK, n_listed - ci0);
+    float* dst = s_w + buf * kBatchFloats;
+    for (int x = tid; x < nb * kRows * kVec; x += kThreads) {
+      const int j = x / (kRows * kVec), rest = x - j * kRows * kVec;
+      const int k = rest / kVec, v = rest - k * kVec;
+      const int c = __ldg(list + ci0 + j);
+      cp_async16(dst + (j * kRows + k) * kChunk + 4 * v,
+                 w_b + (size_t)k * tpad + (size_t)c * kChunk + 4 * v);
+    }
+    if (tid < nb) s_cid[buf][tid] = __ldg(list + ci0 + tid);
+    if (tid < 6 * nb) {
+      const int k = tid / nb, j = tid - k * nb;
+      cp_async4(&s_box[buf][k][j], box_b + (size_t)k * nc + __ldg(list + ci0 + j));
+    }
+    cp_async_commit();
+  };
 
   float btn = kBig, bdn = 1.0f;
   int bp = -1, n_tested = 0;
-  for (int ci = 0; ci < n_listed; ++ci) {
-    if (any_hit && __syncthreads_and(bp >= 0 || dead)) break;
-    const int c = __ldg(list + ci);
-    const float best_t = btn / bdn;
-    const float t0x = __ldg(box_b + 0 * nc + c) * inv_dx;
-    const float t1x = __ldg(box_b + 3 * nc + c) * inv_dx;
-    const float t0y = __ldg(box_b + 1 * nc + c) * inv_dy;
-    const float t1y = __ldg(box_b + 4 * nc + c) * inv_dy;
-    const float t0z = __ldg(box_b + 2 * nc + c) * inv_dz;
-    const float t1z = __ldg(box_b + 5 * nc + c) * inv_dz;
-    const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fmaxf(fminf(t0z, t1z), t_min));
-    const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                             fminf(fmaxf(t0z, t1z), fminf(tmax, best_t)));
-    if (!__syncthreads_or(tnear <= tfar)) continue;
-    ++n_tested;
+  bool warp_done = __all_sync(0xffffffffu, dead);
+  const int n_batches = (n_listed + kK - 1) / kK;
+  if (n_batches > 0) fill(0, 0);
+  for (int i = 0; i < n_batches; ++i) {
+    cp_async_wait<0>();
+    // After this barrier batch i is staged and every warp is done with the
+    // other buffer.
+    if (__syncthreads_and(warp_done)) break;
+    const int buf = i & 1;
+    if (i + 1 < n_batches) fill(i + 1, buf ^ 1);
+    if (warp_done) continue;
+    const int nb = min(kK, n_listed - i * kK);
+    for (int j = 0; j < nb; ++j) {
+      const int c = s_cid[buf][j];
+      const float t0x = s_box[buf][0][j] * inv_dx, t1x = s_box[buf][3][j] * inv_dx;
+      const float t0y = s_box[buf][1][j] * inv_dy, t1y = s_box[buf][4][j] * inv_dy;
+      const float t0z = s_box[buf][2][j] * inv_dz, t1z = s_box[buf][5][j] * inv_dz;
+      const float best_t = btn / bdn;
+      const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                                fmaxf(fminf(t0z, t1z), t_min));
+      const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                               fminf(fmaxf(t0z, t1z), fminf(tmax, best_t)));
+      const bool open = tnear <= tfar && !(any_hit && bp >= 0);
+      if (!__any_sync(0xffffffffu, open)) continue;
+      ++n_tested;
 
-    for (int i = threadIdx.x; i < 12 * chunk; i += kThreads) {
-      const int k = i / chunk, j = i - k * chunk;
-      s_w[i] = __ldg(w_b + (size_t)k * tpad + (size_t)c * chunk + j);
-    }
-    __syncthreads();
-    for (int j = 0; j < chunk; ++j) {
-      const float w00 = s_w[0 * chunk + j], w01 = s_w[1 * chunk + j], w02 = s_w[2 * chunk + j];
-      const float w10 = s_w[3 * chunk + j], w11 = s_w[4 * chunk + j], w12 = s_w[5 * chunk + j];
-      const float w20 = s_w[6 * chunk + j], w21 = s_w[7 * chunk + j], w22 = s_w[8 * chunk + j];
-      const float opx = s_w[9 * chunk + j], opy = s_w[10 * chunk + j], opz = s_w[11 * chunk + j];
-      const float dpx = w00 * dx + w01 * dy + w02 * dz;
-      const float dpy = w10 * dx + w11 * dy + w12 * dz;
-      const float dpz = w20 * dx + w21 * dy + w22 * dz;
-      const float sgn = dpz >= 0.0f ? 1.0f : -1.0f;
-      const float dn = dpz * sgn;
-      const float tn = -opz * sgn;
-      const float u_n = opx * dn + tn * dpx;
-      const float v_n = opy * dn + tn * dpy;
-      const bool ok = dn > 1e-12f && u_n >= -kEpsBary * dn && v_n >= -kEpsBary * dn &&
-                      u_n + v_n <= (1.0f + kEpsBary) * dn && tn > t_min * dn &&
-                      tn < tmax * dn && tn * bdn < btn * dn;
-      if (ok) {
-        btn = tn;
-        bdn = dn;
-        bp = c * chunk + j;
+      const float* rows = s_w + buf * kBatchFloats + j * kRows * kChunk;
+#pragma unroll
+      for (int j0 = 0; j0 < kChunk; j0 += 4) {
+        float4 w[kRows];
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+          w[k] = *reinterpret_cast<const float4*>(rows + k * kChunk + j0);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float w00 = lane(w[0], q), w01 = lane(w[1], q), w02 = lane(w[2], q);
+          const float w10 = lane(w[3], q), w11 = lane(w[4], q), w12 = lane(w[5], q);
+          const float w20 = lane(w[6], q), w21 = lane(w[7], q), w22 = lane(w[8], q);
+          const float opx = lane(w[9], q), opy = lane(w[10], q), opz = lane(w[11], q);
+          const float dpx = mad(w02, dz, mad(w01, dy, w00 * dx));
+          const float dpy = mad(w12, dz, mad(w11, dy, w10 * dx));
+          const float dpz = mad(w22, dz, mad(w21, dy, w20 * dx));
+          const float sgn = dpz >= 0.0f ? 1.0f : -1.0f;
+          const float dn = dpz * sgn;
+          const float tn = -opz * sgn;
+          const float u_n = mad(opx, dn, tn * dpx);
+          const float v_n = mad(opy, dn, tn * dpy);
+          const bool ok = dn > 1e-12f && u_n >= -kEpsBary * dn && v_n >= -kEpsBary * dn &&
+                          u_n + v_n <= (1.0f + kEpsBary) * dn && tn > t_min * dn &&
+                          tn < tmax * dn && tn * bdn < btn * dn;
+          if (ok) {
+            btn = tn;
+            bdn = dn;
+            bp = c * kChunk + j0 + q;
+          }
+        }
+      }
+      if (any_hit && __all_sync(0xffffffffu, bp >= 0 || dead)) {
+        warp_done = true;
+        break;
       }
     }
-    __syncthreads();
   }
-  out_t[(size_t)b * R + r] = bp >= 0 ? btn / bdn : 0.0f;
-  out_prim[(size_t)b * R + r] = bp;
-  if (tested != nullptr) tested[(size_t)b * R + r] = dead ? 0 : n_tested;
+  cp_async_wait<0>();  // drain the copy an early exit leaves in flight
+
+  const size_t o = (size_t)b * R + r;
+  out_t[o] = bp >= 0 ? btn / bdn : 0.0f;
+  out_prim[o] = bp;
+  if (tested != nullptr) tested[o] = dead ? 0 : n_tested;
 }
 
-// dirs (B, 3, R), tmax (B, R), woop (B, 12, tpad), boxes (B, 6, nc) shifted to
-// the shared origin, walk and counts as for the kernel -> out_t, out_prim
-// and, unless null, tested (B, R).  R must be a multiple of 2048 and
-// tpad == nc * chunk.
-template <bool kLists>
+template <bool kLists, bool kFused, int kChunk>
+int launch_chunk(const float* dirs, const float* tmax, const float* woop, const float* boxes,
+                 const int* walk, const int* counts, float* out_t, int* out_prim, int* tested,
+                 int B, int R, int tpad, int nc, float t_min, int any_hit, cudaStream_t stream) {
+  const dim3 grid(R / kThreads, B);
+  intersect_shared_kernel<kLists, kFused, kChunk><<<grid, kThreads, 0, stream>>>(
+      dirs, tmax, woop, boxes, walk, counts, out_t, out_prim, tested, R, tpad, nc, t_min,
+      any_hit);
+  return (int)cudaGetLastError();
+}
+
+// dirs (B, 3, R), tmax (B, R), woop (B, 12, tpad) 16-byte aligned, boxes
+// (B, 6, nc) shifted to the shared origin, walk and counts as for the kernel
+// -> out_t, out_prim and, unless null, tested (B, R).  R must be a multiple
+// of 2048, chunk 16 (B1's) or 64 (B6's) faces, and tpad == nc * chunk.
+template <bool kLists, bool kFused>
 int launch_intersect_shared(const float* dirs, const float* tmax, const float* woop,
                             const float* boxes, const int* walk, const int* counts, float* out_t,
                             int* out_prim, int* tested, int B, int R, int tpad, int nc, int chunk,
                             float t_min, int any_hit, void* stream) {
   if (B <= 0 || R <= 0) return 0;
-  if (R % kRayTile != 0 || tpad != nc * chunk || chunk <= 0) return (int)cudaErrorInvalidValue;
+  if (R % kRayTile != 0 || tpad != nc * chunk) return (int)cudaErrorInvalidValue;
   if (walk == nullptr || (kLists && counts == nullptr)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(R / kThreads, B);
-  const size_t smem = sizeof(float) * 12 * chunk;
-  intersect_shared_kernel<kLists><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      dirs, tmax, woop, boxes, walk, counts, out_t, out_prim, tested, R, tpad, nc, chunk, t_min,
-      any_hit);
-  return (int)cudaGetLastError();
+  if (reinterpret_cast<size_t>(woop) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk) {
+    case 16:
+      return launch_chunk<kLists, kFused, 16>(dirs, tmax, woop, boxes, walk, counts, out_t,
+                                              out_prim, tested, B, R, tpad, nc, t_min, any_hit,
+                                              s);
+    case 64:
+      return launch_chunk<kLists, kFused, 64>(dirs, tmax, woop, boxes, walk, counts, out_t,
+                                              out_prim, tested, B, R, tpad, nc, t_min, any_hit,
+                                              s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace ff_shared

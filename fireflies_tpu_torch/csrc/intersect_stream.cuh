@@ -38,18 +38,15 @@
 //     block's vote opens and 0.73 of a warp's (perf_probe votes).  The rays
 //     that open a cluster are gathered into a list, and the block's warps
 //     share its tasks (32 listed rays, one a lane, against kSlice faces)
-//     evenly, so no warp idles at the cluster's barrier while others test;
-//     each box is padded by 1e-5 of its extents (kBoxPad), since a hit
-//     inside the barycentric tolerance may lie just outside it;
-//   * a task carries its best of kSlice faces as the rational (tn, dn),
-//     replaced only when tn bdn < btn dn (each product rounded), and
-//     divides once; each ray's closest hit so far is one 64-bit key in
-//     shared memory, the bits of t above the face id, lowered with
-//     atomicMin, so across slices and clusters the smallest t wins, ties to
-//     the lowest face id.  Inside a slice the rational compare decides, so
-//     where two faces round to the same t (or nearly) it may keep another
-//     face than the plain version's argmin, which takes the lowest id among
-//     equal t; chip_smoke.py counts such rays as closest mismatches;
+//     evenly, so no warp idles at the cluster's barrier while others test
+//     (append_open and run_tasks of ray_tasks.cuh, shared with B3); each
+//     box is padded by 1e-5 of its extents (kBoxPad), since a hit inside
+//     the barycentric tolerance may lie just outside it;
+//   * each ray's closest hit so far is one 64-bit key (t bits, face id) in
+//     shared memory lowered with atomicMin (ray_tasks.cuh), so where two
+//     faces round to the same t (or nearly) it may keep another face than
+//     the plain version's argmin; chip_smoke.py counts such rays as
+//     closest mismatches;
 //   * no attribute is carried: after the walk a hit ray reads its winner's
 //     W2 row and material id (rows 6-8 and 12) from the table in device
 //     memory (L2), so row 12 is not copied.
@@ -58,9 +55,20 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+#include "ray_tasks.cuh"
+
 namespace ff_stream {
 
-constexpr int kThreads = 256;
+using ff_copy::cp_async16;
+using ff_copy::cp_async_commit;
+using ff_copy::cp_async_wait;
+
+using ff_tasks::kBig;
+using ff_tasks::kNoHit;
+using ff_tasks::kThreads;
+using ff_tasks::lane;
+
 constexpr int kRayTile = 2048;
 constexpr int kChunk = 128;     // faces per streamed cluster
 constexpr int kWoopRows = 16;   // rows of the packed table in device memory
@@ -68,10 +76,8 @@ constexpr int kCopyRows = 13;   // rows a shared-origin kernel reads: W, o', mat
 constexpr int kGeneralRows = 12;  // rows a general kernel reads: W, W v0
 constexpr int kMatRow = 12;
 constexpr int kVecPerRow = kChunk / 4;
-constexpr float kBig = 3.0e38f;
 constexpr float kEpsBary = 1e-6f;
 constexpr float kBoxPad = 1e-5f;  // the general kernels' box padding, of its extents
-constexpr unsigned long long kNoHit = ~0ull;
 
 // The general kernels' design: at least 3 blocks an SM (which bounds the
 // registers to 80) and 32 faces of a cluster a task.
@@ -81,24 +87,6 @@ constexpr int kSlice = 32;
 __device__ __forceinline__ float safe_inv(float x) {
   if (fabsf(x) < 1e-30f) return x < 0.0f ? -1e30f : 1e30f;
   return 1.0f / x;
-}
-
-__device__ __forceinline__ float lane(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Start copying cluster c's first kRows rows of one variant's table into
@@ -225,6 +213,36 @@ stream_kernel(const float* __restrict__ rays, const float* __restrict__ tmax_in,
   if (tested != nullptr) tested[o] = dead ? 0 : n_tested;
 }
 
+// The general Woop pair test of B4 and B7g for run_tasks: rows W0, W1, W2
+// and W v0 of four faces, the ray's origin and tmax (o4) and direction.
+struct WoopGeneral {
+  float t_min;
+  __device__ __forceinline__ bool operator()(const float4 (&w)[kGeneralRows], int q,
+                                             const float4& o4, const float4& d4, float btn,
+                                             float bdn, float& tn, float& dn) const {
+    const float w00 = lane(w[0], q), w01 = lane(w[1], q), w02 = lane(w[2], q);
+    const float w10 = lane(w[3], q), w11 = lane(w[4], q), w12 = lane(w[5], q);
+    const float w20 = lane(w[6], q), w21 = lane(w[7], q), w22 = lane(w[8], q);
+    const float opx =
+        __fmaf_rn(w02, o4.z, __fmaf_rn(w01, o4.y, __fmaf_rn(w00, o4.x, -lane(w[9], q))));
+    const float opy =
+        __fmaf_rn(w12, o4.z, __fmaf_rn(w11, o4.y, __fmaf_rn(w10, o4.x, -lane(w[10], q))));
+    const float opz =
+        __fmaf_rn(w22, o4.z, __fmaf_rn(w21, o4.y, __fmaf_rn(w20, o4.x, -lane(w[11], q))));
+    const float dpx = __fmaf_rn(w02, d4.z, __fmaf_rn(w01, d4.y, w00 * d4.x));
+    const float dpy = __fmaf_rn(w12, d4.z, __fmaf_rn(w11, d4.y, w10 * d4.x));
+    const float dpz = __fmaf_rn(w22, d4.z, __fmaf_rn(w21, d4.y, w20 * d4.x));
+    const float sgn = dpz >= 0.0f ? 1.0f : -1.0f;
+    dn = dpz * sgn;
+    tn = -opz * sgn;
+    const float u_n = __fmaf_rn(opx, dn, tn * dpx);
+    const float v_n = __fmaf_rn(opy, dn, tn * dpy);
+    return (dn > 1e-12f) & (u_n >= -kEpsBary * dn) & (v_n >= -kEpsBary * dn) &
+           (u_n + v_n <= (1.0f + kEpsBary) * dn) & (tn > t_min * dn) & (tn < o4.w * dn) &
+           (tn * bdn < btn * dn);
+  }
+};
+
 // The general-origin kernels (B4, B7g): rays (B, 6, R) origins then
 // directions, woop rows 9-11 = W v0, boxes in world space; otherwise as
 // stream_kernel.
@@ -240,8 +258,6 @@ stream_general_kernel(const float* __restrict__ rays, const float* __restrict__ 
                       int any_hit) {
   constexpr int kRows = kGeneralRows;
   constexpr int kBufFloats = kRows * kChunk;
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kSlices = kChunk / kSlice;
   __shared__ __align__(16) float s_w[2 * kBufFloats];
   __shared__ float4 s_o[kThreads];  // origin, tmax
   __shared__ float4 s_d[kThreads];  // direction
@@ -309,66 +325,11 @@ stream_general_kernel(const float* __restrict__ rays, const float* __restrict__ 
                              fminf(fmaxf(t0z, t1z), fminf(tmax, best_t)));
     const bool open = tnear <= tfar;
     n_tested += open;
-    const unsigned ballot = __ballot_sync(0xffffffffu, open);
-    int base = 0;
-    if (lane_id == 0 && ballot != 0) base = atomicAdd(&s_n_open, __popc(ballot));
-    base = __shfl_sync(0xffffffffu, base, 0);
-    if (open) s_open[base + __popc(ballot & ((1u << lane_id) - 1u))] = tid;
+    ff_tasks::append_open(open, tid, lane_id, s_open, &s_n_open);
     __syncthreads();
-
-    // Task g * kSlices + s: rays 32 g .. 32 g + 31 of the list, one a lane,
-    // against faces s kSlice .. (s + 1) kSlice - 1 of the cluster.
-    const int n_open = s_n_open;
-    const int n_tasks = ((n_open + 31) >> 5) * kSlices;
-    for (int task = warp; task < n_tasks; task += kWarps) {
-      const int g = task / kSlices, slice = task - g * kSlices;
-      const int k = (g << 5) + lane_id;
-      if (k >= n_open) continue;
-      const int i = s_open[k];
-      const float4 o4 = s_o[i], d4 = s_d[i];
-      float btn = kBig, bdn = 1.0f;
-      int bj = -1;
-      for (int j0 = slice * kSlice; j0 < (slice + 1) * kSlice; j0 += 4) {
-        float4 w[kRows];
-#pragma unroll
-        for (int kk = 0; kk < kRows; ++kk) {
-          w[kk] = *reinterpret_cast<const float4*>(cur + kk * kChunk + j0);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float w00 = lane(w[0], q), w01 = lane(w[1], q), w02 = lane(w[2], q);
-          const float w10 = lane(w[3], q), w11 = lane(w[4], q), w12 = lane(w[5], q);
-          const float w20 = lane(w[6], q), w21 = lane(w[7], q), w22 = lane(w[8], q);
-          const float opx = __fmaf_rn(w02, o4.z, __fmaf_rn(w01, o4.y, __fmaf_rn(w00, o4.x,
-                                                                             -lane(w[9], q))));
-          const float opy = __fmaf_rn(w12, o4.z, __fmaf_rn(w11, o4.y, __fmaf_rn(w10, o4.x,
-                                                                             -lane(w[10], q))));
-          const float opz = __fmaf_rn(w22, o4.z, __fmaf_rn(w21, o4.y, __fmaf_rn(w20, o4.x,
-                                                                             -lane(w[11], q))));
-          const float dpx = __fmaf_rn(w02, d4.z, __fmaf_rn(w01, d4.y, w00 * d4.x));
-          const float dpy = __fmaf_rn(w12, d4.z, __fmaf_rn(w11, d4.y, w10 * d4.x));
-          const float dpz = __fmaf_rn(w22, d4.z, __fmaf_rn(w21, d4.y, w20 * d4.x));
-          const float sgn = dpz >= 0.0f ? 1.0f : -1.0f;
-          const float dn = dpz * sgn;
-          const float tn = -opz * sgn;
-          const float u_n = __fmaf_rn(opx, dn, tn * dpx);
-          const float v_n = __fmaf_rn(opy, dn, tn * dpy);
-          const bool ok = dn > 1e-12f && u_n >= -kEpsBary * dn && v_n >= -kEpsBary * dn &&
-                          u_n + v_n <= (1.0f + kEpsBary) * dn && tn > t_min * dn &&
-                          tn < o4.w * dn && tn * bdn < btn * dn;
-          if (ok) {
-            btn = tn;
-            bdn = dn;
-            bj = j0 + q;
-          }
-        }
-      }
-      if (bj >= 0) {
-        const float t = btn / bdn;
-        atomicMin(&s_best[i], ((unsigned long long)__float_as_uint(t) << 32) |
-                                  (unsigned)(c * kChunk + bj));
-      }
-    }
+    ff_tasks::run_tasks<1, kChunk, kSlice, kRows>(
+        cur, s_open, &s_n_open, [&](int) { return c * kChunk; }, s_o, s_d, s_best, warp, lane_id,
+        WoopGeneral{t_min});
     __syncthreads();
     if (tid == 0) s_n_open = 0;  // read by every thread before the barrier above
   }

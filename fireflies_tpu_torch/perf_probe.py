@@ -4,8 +4,8 @@
 
 Counterpart of tools/perf_probe.py (`probe_hitfrac`, `probe_kernel`,
 `probe_roofline`; its `probe_step` needs the projector-texture route, which
-is not ported).  The probes are hitfrac, kernel, roofline, sass and
-votes.  Each measurement prints one JSON line; with `out.json` they are
+is not ported).  The probes are hitfrac, kernel, roofline, sass, votes and
+launches.  Each measurement prints one JSON line; with `out.json` they are
 also written there.  The card's name and power limit come first.
 
 Timing: CUDA events around `n` calls after one warm-up call (`cuda_ms`),
@@ -39,13 +39,18 @@ and kernel.  Every probe uses one variant of the vocalfold scene and
 - sass: what the compiler made of every kernel: registers and spills
   (the `-Xptxas -v` report of the build) and the instructions of its inner
   loop by class (`cuobjdump -sass` on the built library, whose listing is
-  written beside it as `<library>.sass`), per tested face for the Woop
-  kernels.
-- votes: the bounce launch of the reference shape (B4) and of
-  reference_unculled (B7g), recorded from one forward batch of 16 variants
-  at 512x512: the fewest pairs a slab vote over each ray alone, each 32-ray
-  warp and each 256-ray block would open, beside the pairs the kernel
-  reports it tested.
+  written beside it as `<library>.sass`), per tested face for the Woop and
+  Moller-Trumbore kernels.
+- votes: the launches of `VOTE_LAUNCHES`, each the first of its kernel and
+  mode in one forward batch of 16 variants at 512x512 (the bounce launches
+  of B4, B7g and B3, B1's camera and first shadow launch on main and its
+  camera launch on mid, B6's camera launch on main_unculled): the fewest
+  pairs a slab vote over each ray alone, each 32-ray warp and each 256-ray
+  block would open, beside the pairs the kernel reports it tested.
+- launches: every launch of every intersection kernel in one forward
+  batch of the shape chip_smoke.py reports it on (16 variants, 512x512):
+  its time, live rays, the pairs it tested and the pairs its inputs need
+  (`least_pairs`), without the plain versions chip_smoke.py replays.
 
 `all` runs hitfrac, kernel and roofline.  Needs a CUDA device.
 """
@@ -463,10 +468,11 @@ _SASS_CLASSES = {
 _SASS_FUNCTION = re.compile(r"Function : (\S+)")
 _SASS_LABEL = re.compile(r"^\s*\.(L_x_\d+):")
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
-# float32(1e-12), the floor of |d'_z| that every Woop pair test compares
-# with, as SASS prints the immediate (decimal or its bits): one such compare
-# per tested face.
-_PAIR_MARK = re.compile(r"9\.99999996004197\d*e-13|0x2b8cbccc", re.IGNORECASE)
+# One compare per tested face, with an immediate as SASS prints it (decimal
+# or its bits): float32(1e-12), the floor of |d'_z| in every Woop pair test,
+# or float32(1e-9), the floor of |det| (kEpsDet) in every Moller-Trumbore one.
+_PAIR_MARK = re.compile(r"9\.99999996004197\d*e-13|0x2b8cbccc|9\.999999717180\d*e-10|0x3089705f",
+                        re.IGNORECASE)
 
 
 def sass_functions(text: str) -> dict[str, list[tuple]]:
@@ -510,21 +516,28 @@ def _is_lds128(op: str) -> bool:
     return op.startswith("LDS") and ".128" in op
 
 
+def _pair_marks(body: list[tuple]) -> int:
+    return sum(1 for _, _, op, args, _ in body
+               if op.startswith("FSETP") and _PAIR_MARK.search(args))
+
+
 def inner_loop_counts(ins: list[tuple]) -> dict:
-    """Instructions of a function's innermost loop that holds 16-byte shared
-    loads (of the back edges, branches to an address at or before their
-    own, the shortest span with an LDS.128), counted by class, and per
-    tested face where the loop holds Woop pair tests (`faces`, its compares
-    against float32(1e-12)).  Empty when no such loop exists."""
+    """Instructions of a function's innermost loop over pair tests (of the
+    back edges, branches to an address at or before their own, the
+    shortest span that holds a pair test's compare, `_PAIR_MARK`, whatever
+    the width of its shared loads; where no loop holds one, the shortest
+    span with a 16-byte shared load), counted by class, and per tested face
+    where the loop holds pair tests (`faces`, its marked compares).  Empty
+    when no such loop exists."""
     spans = [[x for x in ins if target <= x[0] <= addr] for addr, *_, target in ins
              if target is not None and target <= addr]
-    spans = [body for body in spans if any(_is_lds128(x[2]) for x in body)]
+    spans = ([body for body in spans if _pair_marks(body)]
+             or [body for body in spans if any(_is_lds128(x[2]) for x in body)])
     if not spans:
         return {}
     best = min(spans, key=len)
     classes = dict(Counter(sass_class(pred, op) for _, pred, op, _, _ in best))
-    faces = sum(1 for _, _, op, args, _ in best
-                if op.startswith("FSETP") and _PAIR_MARK.search(args))
+    faces = _pair_marks(best)
     out = {"loop_instructions": len(best), "loop_faces": faces,
            "loop_lds128": sum(1 for x in best if _is_lds128(x[2])), "loop_classes": classes}
     if faces:
@@ -566,7 +579,9 @@ def probe_sass(device) -> list[dict]:
     out = []
     for name, ins in sorted(sass_functions(text).items()):
         label = next((k for k, keys in KERNEL_NAMES.items() if any(x in name for x in keys)), name)
-        out.append(_emit(f"sass_{label.split()[0]}", function=name, kernel=label,
+        chunk = re.search(r"Li(\d+)E", name)  # a kernel built for several cluster sizes
+        suffix = f"_c{chunk.group(1)}" if chunk else ""
+        out.append(_emit(f"sass_{label.split()[0]}{suffix}", function=name, kernel=label,
                          instructions=len(ins), **resources.get(name, {}),
                          **inner_loop_counts(ins)))
     return out
@@ -587,17 +602,21 @@ def slab_open(o: Tensor, d: Tensor, box: Tensor, t_min: float, tfar_ray: Tensor)
 
 
 def vote_widths(rec: dict, t: Tensor, prim: Tensor, widths=(1, 32, 256),
-                ray_chunk: int = 65536) -> dict[int, float]:
+                ray_chunk: int = 65536, batch: int = 1) -> dict:
     """Clusters a launch would test, summed over its live rays, if a vote
     over each group of `widths` consecutive rays (1: each ray alone, 32: a
     warp, 256: a block) opened a cluster for the group: a listed cluster (a
     tile list's, or every cluster without lists) opens when the slab test of
     some ray of the group passes with tfar capped at min(tmax, the ray's
     final t).  The running best never falls below the final t, so these are
-    the fewest clusters each width could open.  `rec` holds a streamed or
-    resident launch's packed inputs (`Kernel.record`), `t` and `prim` its
-    outputs."""
-    rays_soa, tmax_tiles, boxes = rec["rays_soa"], rec["tmax_tiles"], rec["boxes"]
+    the fewest clusters each width could open.  Under the key "lanes", the
+    lanes that tasks of 32 listed (ray, cluster) entries take at width 1
+    (B3, B4 and B7g): per 256-ray block and `batch` clusters staged at once
+    (consecutive in index order; B4 and B7g stage one), the opening pairs
+    rounded up to a multiple of 32.  `rec` holds a streamed or resident
+    launch's packed inputs (`Kernel.record`), `t` and `prim` its outputs."""
+    rays_soa = rec["rays_soa"] if "rays_soa" in rec else rec["dirs_soa"]
+    tmax_tiles, boxes = rec["tmax_tiles"], rec["boxes"]
     b, n_comp = rays_soa.shape[:2]
     r = tmax_tiles[0].numel()
     rays = rays_soa.reshape(b, n_comp, r)
@@ -608,7 +627,7 @@ def vote_widths(rec: dict, t: Tensor, prim: Tensor, widths=(1, 32, 256),
     else:
         listed = torch.ones(b, r // ik.RAY_TILE, nc, dtype=torch.bool, device=tmax.device)
     tfar_ray = torch.where(prim.reshape(b, r) >= 0, torch.minimum(tmax, t.reshape(b, r)), tmax)
-    totals = dict.fromkeys(widths, 0.0)
+    totals = dict.fromkeys((*widths, "lanes"), 0.0)
     for bi in range(b):
         for s in range(0, r, ray_chunk):
             d = rays[bi, n_comp - 3:, s:s + ray_chunk].T
@@ -620,56 +639,128 @@ def vote_widths(rec: dict, t: Tensor, prim: Tensor, widths=(1, 32, 256),
             for w in widths:
                 groups = opened.reshape(n // w, w, nc).any(dim=1).sum(dim=1)
                 totals[w] += float((groups * live.reshape(n // w, w).sum(dim=1)).double().sum())
+            per_block = (opened & live[:, None]).reshape(n // 256, 256, nc).sum(dim=1)
+            pad = -nc % batch
+            per_batch = torch.nn.functional.pad(per_block, (0, pad)).reshape(
+                n // 256, -1, batch).sum(dim=2)
+            totals["lanes"] += float(((per_batch + 31) // 32 * 32).double().sum())
     return totals
 
 
-# The general streamed kernels' bounce launches: (shape, kernel name, wrapper).
-_BOUNCE = (("reference", "intersect_stream_general_culled",
-            ist.intersect_stream_general_culled_packed),
-           ("reference_unculled", "intersect_stream_general",
-            ist.intersect_stream_general_packed))
+def faces_per_cluster(rec: dict) -> int:
+    """Faces a cluster of a recorded launch's triangle table holds."""
+    table = rec.get("woop16", rec.get("woop", rec.get("tri")))
+    return table.shape[2] // rec["boxes"].shape[2]
 
 
-def _bounce_launch(shape: str, name: str, device, size: int, batch: int) -> dict:
-    """The inputs of kernel `name`'s first closest-hit launch in one forward
-    batch of `shape` (`Kernel.record`)."""
+def least_pairs(rec: dict, t: Tensor, prim: Tensor) -> float:
+    """The pairs a launch needs whatever implements it: each live ray
+    against the faces of every listed cluster its own slab test opens, with
+    tfar capped at its final t (`vote_widths` at width 1)."""
+    return vote_widths(rec, t, prim, widths=(1,))[1] * faces_per_cluster(rec)
+
+
+# Faces B3 stages at once (kBatchFaces of csrc/intersect_general.cu): its
+# tasks' lanes are counted over such batches.
+RESIDENT_BATCH_FACES = 256
+# The launches `votes` reads: (shape, kernel name, mode), each the first
+# launch of that kernel and mode in one forward batch of the shape.
+VOTE_LAUNCHES = (
+    ("reference", "intersect_stream_general_culled", "closest"),  # B4, bounce
+    ("reference_unculled", "intersect_stream_general", "closest"),  # B7g, bounce
+    ("main", "intersect_general", "closest"),  # B3, bounce
+    ("main", "intersect_shared_culled", "closest"),  # B1, camera
+    ("main", "intersect_shared_culled", "any"),  # B1, first shadow
+    ("mid", "intersect_shared_culled", "closest"),  # B1, camera at 5288 faces
+    ("main_unculled", "intersect_shared", "closest"),  # B6, camera
+)
+# Each intersection kernel's wrapper on packed inputs, by kernel name.
+PACKED = {"intersect_shared_culled": ic.intersect_culled_packed,
+          "intersect_general": ik.intersect_packed,
+          "intersect_stream_culled": ist.intersect_stream_culled_packed,
+          "intersect_stream_general_culled": ist.intersect_stream_general_culled_packed,
+          "intersect_general_culled": igc.intersect_general_culled_packed,
+          "intersect_shared": ik.intersect_shared_packed,
+          "intersect_stream": ist.intersect_stream_packed,
+          "intersect_stream_general": ist.intersect_stream_general_packed}
+
+
+def _record_launches(shape: str, device, size: int, batch: int) -> dict[str, list[dict]]:
+    """The inputs of every kernel launch in one forward batch of `shape`
+    (`Kernel.record`), by kernel name."""
     from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
 
     resolution, shape_cfg = main_path.SHAPES[shape]
     cfg = main_path.bench_config(size=size, **shape_cfg)
     bridge, randomize, beams = main_path.build(device, resolution=resolution)
-    kernel = KERNELS[name]
-    kernel.recorded = []
+    for kernel in KERNELS.values():
+        kernel.recorded = []
     with torch.no_grad():
         main_path.render_batch(bridge, randomize, beams, list(range(batch)), cfg)
-    recorded, kernel.recorded = kernel.recorded, None
-    return next(x for x in recorded if not x["any_hit"])
+    out = {}
+    for name, kernel in KERNELS.items():
+        out[name], kernel.recorded = kernel.recorded, None
+    return out
 
 
 def probe_votes(device, size: int = 512, batch: int = 16) -> list[dict]:
-    """The bounce launch of the reference shape (B4) and of
-    reference_unculled (B7g), recorded from one forward batch: the pairs a
-    vote over 1, 32 and 256 rays would open at least (`vote_widths`),
-    beside the pairs the kernel reports it tested."""
-    out = []
-    for shape, name, wrapper in _BOUNCE:
-        rec = _bounce_launch(shape, name, device, size, batch)
+    """The launches of `VOTE_LAUNCHES`, recorded from one forward batch of
+    each shape: the pairs a vote over 1, 32 and 256 rays would open at least
+    (`vote_widths`), beside the pairs the kernel reports it tested."""
+    out, recorded = [], {}
+    for shape, name, mode in VOTE_LAUNCHES:
+        if shape not in recorded:
+            recorded = {shape: _record_launches(shape, device, size, batch)}
+        rec = next(x for x in recorded[shape][name] if x["any_hit"] == (mode == "any"))
         tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
-        t, prim = wrapper(**rec, tested=tested)[:2]
-        faces = rec["woop16"].shape[2] // rec["boxes"].shape[2]
-        pairs = {w: n * faces for w, n in vote_widths(rec, t, prim).items()}
+        t, prim = PACKED[name](**rec, tested=tested)[:2]
+        faces = faces_per_cluster(rec)
+        staged = RESIDENT_BATCH_FACES // faces if name == "intersect_general" else 1
+        pairs = {w: n * faces for w, n in vote_widths(rec, t, prim, batch=staged).items()}
         live = int((rec["tmax_tiles"] >= 0).sum())
-        out.append(_emit(f"votes_{shape}", kernel=name, live_rays=live,
-                         clusters=rec["boxes"].shape[2], ray_pairs=pairs[1], warp_pairs=pairs[32],
-                         block_pairs=pairs[256],
+        out.append(_emit(f"votes_{shape}_{name}_{mode}", kernel=name, live_rays=live,
+                         clusters=rec["boxes"].shape[2], faces_per_cluster=faces,
+                         ray_pairs=pairs[1], warp_pairs=pairs[32], block_pairs=pairs[256],
                          kernel_tested_pairs=float(tested.double().sum()) * faces,
                          warp_over_block=pairs[32] / pairs[256],
-                         ray_over_block=pairs[1] / pairs[256]))
+                         ray_over_block=pairs[1] / pairs[256],
+                         task_lane_pairs=pairs["lanes"], lane_use=pairs[1] / pairs["lanes"]))
+    return out
+
+
+def probe_launches(device, size: int = 512, batch: int = 16) -> list[dict]:
+    """Every launch of every intersection kernel in one forward batch of the
+    first shape of `main_path.SHAPES` that runs it (the path chip_smoke.py
+    reports it on), without the plain versions: its time, and the pairs it
+    tested beside the pairs its inputs need (`least_pairs`)."""
+    from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
+
+    out, seen = [], set()
+    for shape in main_path.SHAPES:
+        recorded = _record_launches(shape, device, size, batch)
+        for name in KERNELS:
+            if name in seen or not recorded[name]:
+                continue
+            seen.add(name)
+            fn = PACKED[name]
+            for i, rec in enumerate(recorded[name]):
+                ms = cuda_ms(lambda fn=fn, rec=rec: fn(**rec), 20)
+                tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
+                t, prim = fn(**rec, tested=tested)[:2]
+                pairs = float(tested.double().sum()) * faces_per_cluster(rec)
+                least = least_pairs(rec, t, prim)
+                ops = OPS_PER_PAIR[name] / PEAK_FP32_OPS * 1e3
+                mode = "any" if rec["any_hit"] else "closest"
+                out.append(_emit(f"launch_{shape}_{name}_{mode}#{i}", kernel=name, ms=ms,
+                                 live_rays=int((rec["tmax_tiles"] >= 0).sum()),
+                                 tested_pairs=pairs, least_pairs=least, bound_ms=pairs * ops,
+                                 least_bound_ms=least * ops))
+        del recorded
     return out
 
 
 PROBES = {"hitfrac": probe_hitfrac, "kernel": probe_kernel, "roofline": probe_roofline,
-          "sass": probe_sass, "votes": probe_votes}
+          "sass": probe_sass, "votes": probe_votes, "launches": probe_launches}
 
 
 def main() -> None:

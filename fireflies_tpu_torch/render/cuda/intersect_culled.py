@@ -28,6 +28,7 @@ from fireflies_tpu_torch._build import Kernel, check_cuda, ptr, stream_of, teste
 from fireflies_tpu_torch.render.cuda.intersect_kernel import (
     LANES,
     RAY_TILE,
+    SHARED_KERNEL_CHUNKS,
     pack_dirs,
     pack_triangles_woop,
     woop_hits_plain,
@@ -155,11 +156,12 @@ def intersect_culled_packed_plain(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Te
                                   boxes: Tensor, lists: Tensor, counts: Tensor,
                                   t_min: float, any_hit: bool = False, chunk: int = CHUNK):
     """Plain PyTorch version of the shared-origin kernel (`woop_hits_plain`
-    over the tile lists); any-hit returns the closest hit too.  Returns
-    (t, prim) shaped like `tmax_tiles`; prim = -1 on a miss."""
+    over the tile lists, rounded as the kernel's fused steps); any-hit
+    returns the closest hit too.  Returns (t, prim) shaped like
+    `tmax_tiles`; prim = -1 on a miss."""
     del any_hit, boxes  # the AABB skip is an optimisation, not semantics
     t, prim = woop_hits_plain(dirs_soa, tmax_tiles, woop, listed_mask(lists, counts), t_min,
-                              chunk)
+                              chunk, fused=True)
     return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
 
 
@@ -169,8 +171,9 @@ def intersect_culled_packed(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, 
                             tested: Tensor | None = None):
     """Shared-origin closest/any-hit over packed inputs: builds the tile
     lists unless given, then CPU tensors take the plain version and CUDA
-    tensors launch `csrc/intersect_shared_culled.cu` (one thread per ray,
-    each block on its 2048-ray tile's list, grid (R/256, B)) or raise.
+    tensors launch `csrc/intersect_shared_culled.cu` (256-ray blocks, each
+    on its 2048-ray tile's list, grid (R/256, B); `chunk` one of
+    SHARED_KERNEL_CHUNKS) or raise.
     `tested` (see `_build.tested_ptr`) receives the kernel's per-ray count
     of tested clusters."""
     if lists is None or counts is None:
@@ -184,7 +187,7 @@ def intersect_culled_packed(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, 
     b, _, rows, _ = dirs_soa.shape
     r = rows * LANES
     n_face, nc = woop.shape[2], boxes.shape[2]
-    if r % RAY_TILE or n_face != nc * chunk:
+    if r % RAY_TILE or n_face != nc * chunk or chunk not in SHARED_KERNEL_CHUNKS:
         raise ValueError(f"bad packing: R={r}, Tpad={n_face}, NC={nc}, chunk={chunk}")
     n_tiles = r // RAY_TILE
     check_cuda("dirs_soa", dirs_soa, torch.float32, (b, 3, rows, LANES), dev)

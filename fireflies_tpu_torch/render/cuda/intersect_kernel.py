@@ -44,6 +44,11 @@ _EPS_BARY = 1e-6
 RAY_BLOCK = 16384
 FACE_BLOCK = 256
 
+# Cluster sizes the kernels are built for (a template argument each):
+# B3's and B6's (B1's too, `intersect_culled`).
+GENERAL_KERNEL_CHUNKS = (32, 64, 128)
+SHARED_KERNEL_CHUNKS = (16, 64)
+
 KERNEL_SHARED = Kernel("ff_intersect_shared", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dirs tmax woop boxes
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # order out_t out_prim
@@ -204,12 +209,28 @@ def live_ray_blocks(tmax: Tensor):
 
 
 def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: float,
-                  listed: Tensor | None = None, chunk: int = CHUNK):
-    """The rational Möller-Trumbore test of `csrc/intersect_general.cu` as
-    a blocked broadcast over (rays, faces), closest hit by argmin.  With
+                  listed: Tensor | None = None, chunk: int = CHUNK, fused: bool = False):
+    """The rational Möller-Trumbore test of the general kernels as a
+    blocked broadcast over (rays, faces), closest hit by argmin.  With
     `listed` ((B, T, NC) bool, see `intersect_culled.listed_mask`) a ray
     tests only the clusters of `chunk` faces on its 2048-ray tile's list.
+    `fused` rounds as B3's kernel (`csrc/intersect_general.cu`): the
+    components of P = d x e2 as fma(a, b, -(c d)) and the dots det, u and v
+    as fma(z, z', fma(y, y', x x')) (`fma32`), every other operation on its
+    own; unfused, every operation rounds on its own, as B5's kernel.
     Returns (t, prim), each (B, R); prim = -1 on a miss."""
+    if fused:
+        def cross(ay, az, by, bz):  # ay bz - az by, one rounding of the difference
+            return fma32(ay, bz, -(az * by))
+
+        def dot(ax, ay, az, bx, by, bz):
+            return fma32(az, bz, fma32(ay, by, ax * bx))
+    else:
+        def cross(ay, az, by, bz):
+            return ay * bz - az * by
+
+        def dot(ax, ay, az, bx, by, bz):
+            return ax * bx + ay * by + az * bz
     b = rays_soa.shape[0]
     r = tmax_tiles[0].numel()
     rays = rays_soa.reshape(b, 6, r)
@@ -232,10 +253,10 @@ def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: floa
                     continue  # no ray of the block lists these faces
             (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = (
                 tri[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(9))
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
+            px = cross(dy, dz, e2y, e2z)
+            py = cross(dz, dx, e2z, e2x)
+            pz = cross(dx, dy, e2x, e2y)
+            det = dot(e1x, e1y, e1z, px, py, pz)
             tx = ox - v0x
             ty = oy - v0y
             tz = oz - v0z
@@ -244,8 +265,8 @@ def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: floa
             qz = tx * e1y - ty * e1x
             sgn = torch.where(det >= 0.0, 1.0, -1.0)
             dn = det * sgn
-            un = (tx * px + ty * py + tz * pz) * sgn
-            vn = (dx * qx + dy * qy + dz * qz) * sgn
+            un = dot(tx, ty, tz, px, py, pz) * sgn
+            vn = dot(dx, dy, dz, qx, qy, qz) * sgn
             tn = (e2x * qx + e2y * qy + e2z * qz) * sgn
             eb = _EPS_BARY * dn
             ok = ((dn >= _EPS_DET) & (un >= -eb) & (vn >= -eb) & (un + vn <= dn + eb)
@@ -278,7 +299,7 @@ def fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
 
 
 def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: Tensor | None,
-                    t_min: float, chunk: int):
+                    t_min: float, chunk: int, fused: bool = False):
     """The division-free Woop test of the shared-origin and streamed
     kernels as a blocked broadcast over (rays, faces), closest hit by
     argmin.  With `listed` ((B, T, NC) bool, see
@@ -290,8 +311,10 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
     (W v0)_k formed per pair.  The general branch rounds as B4's and B7g's
     kernel (`csrc/intersect_stream.cuh`): o'_k, d'_k, u_n and v_n as chains
     of fused multiply-adds (`fma32`) in the kernel's order, every other
-    operation on its own.  Returns (t, prim), each (B, R); prim = -1
-    on a miss."""
+    operation on its own.  The shared-origin branch rounds d'_k, u_n and
+    v_n so too with `fused` (B1, `csrc/intersect_shared.cuh`), else every
+    operation on its own (B2, B6 and B7s).  Returns (t, prim), each
+    (B, R); prim = -1 on a miss."""
     b, n_comp = rays_soa.shape[:2]
     general = n_comp == 6
     r = tmax_tiles[0].numel()
@@ -321,6 +344,7 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
                 opx = fma32(w02, oz, fma32(w01, oy, fma32(w00, ox, -opx)))
                 opy = fma32(w12, oz, fma32(w11, oy, fma32(w10, ox, -opy)))
                 opz = fma32(w22, oz, fma32(w21, oy, fma32(w20, ox, -opz)))
+            if general or fused:
                 dpx = fma32(w02, dz, fma32(w01, dy, w00 * dx))
                 dpy = fma32(w12, dz, fma32(w11, dy, w10 * dx))
                 dpz = fma32(w22, dz, fma32(w21, dy, w20 * dx))
@@ -331,7 +355,7 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
             sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
             dn = dpz * sgn
             tn = -opz * sgn
-            if general:
+            if general or fused:
                 u_n = fma32(opx, dn, tn * dpx)
                 v_n = fma32(opy, dn, tn * dpy)
             else:
@@ -352,11 +376,11 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
 def intersect_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: Tensor,
                            t_min: float, any_hit: bool = False, chunk: int = CHUNK):
     """Plain PyTorch version of the general-origin kernel (`mt_hits_plain`
-    over every face).  Any-hit returns the closest hit too (its
-    `prim >= 0` mask is what any-hit means).  Returns (t, prim) shaped like
-    `tmax_tiles`; prim = -1 on a miss."""
+    over every face, rounded as the kernel's fused steps).  Any-hit returns
+    the closest hit too (its `prim >= 0` mask is what any-hit means).
+    Returns (t, prim) shaped like `tmax_tiles`; prim = -1 on a miss."""
     del any_hit, boxes, chunk  # the AABB skip is an optimisation, not semantics
-    t, prim = mt_hits_plain(rays_soa, tmax_tiles, tri, t_min)
+    t, prim = mt_hits_plain(rays_soa, tmax_tiles, tri, t_min, fused=True)
     return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
 
 
@@ -393,9 +417,9 @@ def intersect_packed(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: T
                      tested: Tensor | None = None):
     """General-origin closest/any-hit over packed inputs.  CPU tensors take
     the plain version; CUDA tensors launch `csrc/intersect_general.cu`
-    (one thread per ray, grid (R/256, B)) or raise.  `tested` (see
-    `_build.tested_ptr`) receives the kernel's per-ray count of tested
-    clusters."""
+    (256-ray blocks, grid (R/256, B); `chunk` one of
+    GENERAL_KERNEL_CHUNKS) or raise.  `tested` (see `_build.tested_ptr`)
+    receives the kernel's per-ray count of tested clusters."""
     if rays_soa.device.type == "cpu":
         if tested is not None:
             raise ValueError("tested: only the CUDA kernel counts tested clusters")
@@ -404,7 +428,7 @@ def intersect_packed(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: T
     b, _, rows, _ = rays_soa.shape
     r = rows * LANES
     n_face, nc = tri.shape[2], boxes.shape[2]
-    if r % RAY_TILE or n_face != nc * chunk:
+    if r % RAY_TILE or n_face != nc * chunk or chunk not in GENERAL_KERNEL_CHUNKS:
         raise ValueError(f"bad packing: R={r}, Tpad={n_face}, NC={nc}, chunk={chunk}")
     check_cuda("rays_soa", rays_soa, torch.float32, (b, 6, rows, LANES), dev)
     check_cuda("tmax_tiles", tmax_tiles, torch.float32, (b, rows, LANES), dev)
@@ -441,9 +465,10 @@ def intersect_shared_packed(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, 
     """Shared-origin closest/any-hit over every cluster (B6) on packed
     inputs: takes the front-to-back `cluster_order` unless given, then CPU
     tensors take the plain version and CUDA tensors launch
-    `csrc/intersect_shared.cu` (one thread per ray, grid (R/256, B)) or
-    raise.  `tested` (see `_build.tested_ptr`) receives the kernel's per-ray
-    count of tested clusters."""
+    `csrc/intersect_shared.cu` (256-ray blocks, grid (R/256, B); `chunk`
+    one of SHARED_KERNEL_CHUNKS) or raise.  `tested` (see
+    `_build.tested_ptr`) receives the kernel's per-ray count of tested
+    clusters."""
     if order is None:
         order = cluster_order(boxes)
     if dirs_soa.device.type == "cpu":
@@ -455,7 +480,7 @@ def intersect_shared_packed(dirs_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, 
     b, _, rows, _ = dirs_soa.shape
     r = rows * LANES
     n_face, nc = woop.shape[2], boxes.shape[2]
-    if r % RAY_TILE or n_face != nc * chunk:
+    if r % RAY_TILE or n_face != nc * chunk or chunk not in SHARED_KERNEL_CHUNKS:
         raise ValueError(f"bad packing: R={r}, Tpad={n_face}, NC={nc}, chunk={chunk}")
     check_cuda("dirs_soa", dirs_soa, torch.float32, (b, 3, rows, LANES), dev)
     check_cuda("tmax_tiles", tmax_tiles, torch.float32, (b, rows, LANES), dev)

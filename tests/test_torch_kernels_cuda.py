@@ -9,8 +9,9 @@ false.  Run on a GPU machine with
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
 Tolerance: any-hit masks exact; closest-hit prim equal except at t-ties
-(1e-5 relative), t within 1e-5 relative where the prims agree (B4 and B7g:
-equal, since the plain version rounds their fused steps alike), emitted
+(1e-5 relative), t within 1e-5 relative where the prims agree (B1, B3, B4,
+B6 and B7g in the tests that say so: equal, since the plain versions round
+their steps, fused or not, alike), emitted
 normal and material equal where the prims agree.  The per-ray counts of
 tested clusters (`tested`) are exact integers: 0 on dead rays, never more
 than the ray's tile lists.
@@ -484,3 +485,148 @@ def test_general_stream_tests_only_own_clusters(dev, kernel):
     tested = tested.reshape(-1)
     assert bool((tested[:256] == 1).all())
     assert bool((tested[256:] == 0).all())  # padding: dead
+
+
+# B1, B3 and B6 on one wrapper signature: (packed rays, tmax, table, boxes,
+# t_min, any_hit, lists/counts or order keyword arguments).
+_RESIDENT = ("B1", "B3", "B6")
+
+
+def _resident_case(dev, kernel, verts, faces, o, d, tmax):
+    """(wrapper, args, kwargs, plain version) of B1, B3 or B6 on the given
+    rays, with B1's tile lists prebuilt and shared-origin rays starting at
+    each variant's o[:, 0]."""
+    if kernel == "B3":
+        tri, boxes = ik.pack_triangles(verts, faces)
+        rays, tm, _ = ik.pack_rays(o, d, tmax)
+        return ik.intersect_packed, (rays, tm, tri, boxes, 1e-4), {}, ik.intersect_packed_plain
+    origin = o[:, 0].contiguous()
+    chunk = ic.CHUNK if kernel == "B1" else ik.CHUNK
+    woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=chunk)
+    dirs, tm, _ = ik.pack_dirs(d, tmax)
+    if kernel == "B6":
+        order = ik.cluster_order(boxes)
+        return (ik.intersect_shared_packed, (dirs, tm, woop, boxes, 1e-4), dict(order=order),
+                lambda *a, any_hit=False: ik.intersect_shared_packed_plain(
+                    *a, order, 1e-4, any_hit))
+    lists, counts = ic.tile_cluster_lists(dirs, boxes, t_min=1e-4, tmax_tiles=tm)
+    return (ic.intersect_culled_packed, (dirs, tm, woop, boxes, 1e-4),
+            dict(lists=lists, counts=counts),
+            lambda *a, any_hit=False: ic.intersect_culled_packed_plain(
+                *a, lists, counts, 1e-4, any_hit))
+
+
+def _plain(kernel, plain, args, any_hit):
+    if kernel == "B3":
+        return plain(*args, any_hit=any_hit)
+    return plain(*args[:4], any_hit=any_hit)
+
+
+def _equal_where_prims_agree(out, plain):
+    """t bit for bit wherever kernel and plain version give the same prim
+    (both round every step alike); returns the number of such hits."""
+    same = (out[1] == plain[1]) & (plain[1] >= 0)
+    assert torch.equal(out[0][same], plain[0][same])
+    return int(same.sum())
+
+
+@pytest.mark.parametrize("kernel", _RESIDENT)
+def test_resident_one_ray_opens_a_cluster(dev, kernel):
+    """Two clusters seen from the origin, one down -z and one along +x;
+    every ray of the first 256-ray block looks down -z but ray 5, which
+    looks along +x.  B1 and B6 vote per warp: ray 5 opens the +x cluster for
+    its warp (rays 0-31 test both clusters, the other warps one).  B3 tests
+    a ray only against the clusters its own slab test opens: every live ray
+    tests one.  Outputs equal the plain version's, t bit for bit."""
+    chunk = ic.CHUNK if kernel == "B1" else ik.CHUNK
+    rng = np.random.default_rng(11)
+    centres = np.concatenate([rng.uniform(-0.5, 0.5, (chunk, 3)) * [1, 1, 0.1] + [0, 0, -5],
+                              rng.uniform(-0.5, 0.5, (chunk, 3)) * [0.1, 1, 1] + [5, 0, 0]])
+    tris = rng.uniform(-0.05, 0.05, (2 * chunk, 3, 3)) + centres[:, None]
+    verts = torch.as_tensor(tris.reshape(1, -1, 3), dtype=torch.float32, device=dev)
+    faces = torch.arange(6 * chunk, device=dev).reshape(2 * chunk, 3)
+    d = np.concatenate([rng.uniform(-0.1, 0.1, (256, 2)), -np.ones((256, 1))], -1)
+    d[5] = [1.0, 0.02, 0.01]
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32,
+                        device=dev)[None]
+    fn, args, kw, plain = _resident_case(dev, kernel, verts, faces, torch.zeros_like(d), d, 1e30)
+    assert args[3].shape[2] == 2
+    tested = torch.full_like(args[1], -1, dtype=torch.int32)
+    out = fn(*args, tested=tested, **kw)
+    expect = _plain(kernel, plain, args, False)
+    _check(out, expect, False)
+    assert torch.equal(out[0], expect[0]) and torch.equal(out[1], expect[1])
+    tested = tested.reshape(-1)
+    if kernel == "B3":
+        assert bool((tested[:256] == 1).all())
+    else:
+        assert bool((tested[:32] == 2).all()) and bool((tested[32:256] == 1).all())
+    assert bool((tested[256:] == 0).all())  # padding: dead
+
+
+@pytest.mark.parametrize("kernel,n_faces", [("B1", 5288), ("B1", 8192), ("B3", 8192),
+                                            ("B6", 8192)])
+def test_resident_walks_lists_longer_than_a_batch(dev, kernel, n_faces):
+    """A soup of 5288 or 8192 faces, the most each route sends B1, B3 and B6:
+    their walks (331 or 512 clusters of 16 faces, or 128 of 64) span many
+    staged batches of 256 faces.  Closest hit against the plain version,
+    t bit for bit where the prims agree; any-hit masks exact; the tested
+    counts within the listed clusters."""
+    verts, faces, o, d, tmax = _inputs(dev, seed=14, n_rays=4096, n_faces=n_faces,
+                                       n_variants=2)
+    if kernel != "B3":
+        o = torch.tensor([[0.0, 0.5, 4.0]], device=dev).expand_as(o).contiguous()
+    fn, args, kw, plain = _resident_case(dev, kernel, verts, faces, o, d, tmax)
+    nc = args[3].shape[2]
+    listed = kw["counts"].max() if kernel == "B1" else nc
+    assert int(listed) > 256 // (ic.CHUNK if kernel == "B1" else ik.CHUNK)
+    for any_hit in (False, True):
+        tested = torch.empty_like(args[1], dtype=torch.int32)
+        out = fn(*args, any_hit=any_hit, tested=tested, **kw)
+        expect = _plain(kernel, plain, args, any_hit)
+        _check(out, expect, any_hit)
+        if not any_hit:
+            assert _equal_where_prims_agree(out, expect) > 100
+        assert int(tested.max()) <= nc and bool((tested[args[1] < 0] == 0).all())
+
+
+@pytest.mark.parametrize("kernel", _RESIDENT)
+def test_resident_any_hit_exits_with_next_batch_started(dev, kernel):
+    """A large quad (faces 0-1, with degenerate faces filling its cluster)
+    in front of 1022 small faces far behind it: every ray from around
+    (0, 0, 4) is blocked by cluster 0, first on every walk.  In any-hit mode
+    B1's and B6's warps stop testing after it (every live ray reports one
+    tested cluster), and B3's rays stop opening clusters after the first
+    batch (a batch's slab tests precede its tests, so a ray reports at most
+    that batch's clusters); each block leaves the walk with the next
+    batch's copy started, and the next launch on the stream sees no stale
+    copy."""
+    chunk = ic.CHUNK if kernel == "B1" else ik.CHUNK
+    rng = np.random.default_rng(7)
+    quad = np.array([[-20, -20, 0], [20, -20, 0], [20, 20, 0], [-20, 20, 0]], np.float32)
+    corner = np.repeat(quad[:1][None], chunk - 2, axis=0).repeat(3, axis=1)  # zero-area faces
+    far = (rng.uniform(-3, 3, (1022, 1, 3)) * [1, 1, 0.1] + [0, 0, -30]
+           + rng.uniform(-0.05, 0.05, (1022, 3, 3)))
+    tris = np.concatenate([quad[[[0, 1, 2], [0, 2, 3]]], corner, far]).astype(np.float32)
+    verts = torch.as_tensor(np.stack([tris.reshape(-1, 3)] * 2), device=dev)
+    faces = torch.arange(tris.shape[0] * 3, device=dev).reshape(-1, 3)
+    u = rng.uniform(-0.3, 0.3, size=(2, 4096, 2))
+    d = np.concatenate([u, -np.ones((2, 4096, 1))], -1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(np.float32([0.0, 0.0, 4.0]), d.shape).copy()
+    if kernel == "B3":
+        o[..., :2] += rng.uniform(-0.2, 0.2, size=(2, 4096, 2)).astype(np.float32)
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    fn, args, kw, plain = _resident_case(dev, kernel, verts, faces, o, d,
+                                         torch.full((2, 4096), 100.0, device=dev))
+    assert args[3].shape[2] * chunk >= 4 * 256  # four batches or more
+    tested = torch.empty_like(args[1], dtype=torch.int32)
+    out = fn(*args, any_hit=True, tested=tested, **kw)
+    _check(out, _plain(kernel, plain, args, True), True)
+    assert bool((out[1] >= 0).all())  # every ray blocked
+    if kernel == "B3":
+        assert bool((tested >= 1).all()) and int(tested.max()) <= 256 // chunk
+    else:
+        assert bool((tested == 1).all())  # by the first cluster, and tested no other
+    again = fn(*args, **kw)
+    _check(again, _plain(kernel, plain, args, False), False)

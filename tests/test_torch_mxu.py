@@ -69,32 +69,6 @@ def test_mxu_per_ray_tmax_cuts_after_the_scan():
     assert 0 < int(kept.sum()) < int((p_inf >= 0).sum())
 
 
-def test_mxu_packing_matches_jax():
-    """`pack_triangles_woop` at chunk 128 in the caller's face order is the
-    reference's (w, o', boxes) bit for bit, padding faces included (zero
-    rows, +-3e38 boxes), and `pack_dirs` holds the rows of `pack_dirs_k8`."""
-    verts, faces, d, tmax, origin = _soup(33)
-    woop, boxes = tc_kernel.pack_triangles_woop(_t(verts), _t(faces, torch.long), _t(origin),
-                                                chunk=tc_mxu.CHUNK)
-    dirs, tm, n = tc_kernel.pack_dirs(_t(d), _t(tmax))
-    nc = boxes.shape[2]
-    assert woop.shape == (2, 12, 384) and nc == 3 and n == N
-    assert not woop[:, :, 300:].any()
-    for i in range(2):
-        w, op, bx = (np.asarray(x) for x in jx_mxu.pack_mxu_shared(
-            jnp.asarray(verts[i]), jnp.asarray(faces), jnp.asarray(origin[i])))
-        assert w.shape == (nc, 3, 8, 128) and op.shape == (nc, 8, 128)
-        assert not w[:, :, 3:].any() and not op[:, 3:].any()  # the unused K slots
-        ours_w = woop[i, :9].reshape(3, 3, nc, 128).permute(2, 0, 1, 3).numpy()
-        np.testing.assert_array_equal(ours_w, w[:, :, :3])
-        np.testing.assert_array_equal(woop[i, 9:].reshape(3, nc, 128).transpose(0, 1).numpy(),
-                                      op[:, :3])
-        np.testing.assert_array_equal(boxes[i].numpy(), bx)
-        d_k8, tm_k8, _ = jx_mxu.pack_dirs_k8(jnp.asarray(d[i]), jnp.asarray(tmax[i]))
-        np.testing.assert_array_equal(dirs[i].transpose(0, 1).numpy(), np.asarray(d_k8)[:, :3])
-        np.testing.assert_array_equal(tm[i].numpy(), np.asarray(tm_k8))
-
-
 def test_mxu_degenerate_faces_never_hit():
     """A triangle with 1e-5 edges (det = |e1 x e2|^2 = 1e-20 < 1e-18) and a
     collinear one in front of a quad: their Woop rows are zero and the rays

@@ -8,8 +8,8 @@ rendered by both packages from the same randomized parameters
     whose primary hit differs by a tie;
   * beam gradient of the mean image: relative L2 error <= 1e-3;
   * two bounces: the mean radiances over 8 seeds each agree within
-    4 sqrt(SEM_port^2 + SEM_jax^2);
-  * `pattern_step` on 2 variants returns a finite, nonzero gradient.
+    4 sqrt(SEM_port^2 + SEM_jax^2).
+`pattern_step` and the second asset are in tests/test_torch_render_step.py.
 """
 
 import jax
@@ -131,35 +131,3 @@ def test_two_bounce_mean_radiance_agrees(setup):
     assert np.isfinite(means_t).all()
     sem = np.sqrt(means_t.var(ddof=1) / SEEDS + means_j.var(ddof=1) / SEEDS)
     assert abs(means_t.mean() - means_j.mean()) <= 4 * sem, (means_t.mean(), means_j.mean(), sem)
-
-
-def test_pattern_step_gradient_is_finite():
-    bridge, randomize, beams = main_path.build("cpu")
-    loss, grad = main_path.pattern_step(bridge, randomize, beams, [0, 1], _cfg("torch", 2))
-    assert grad.shape == (144, 3)
-    assert torch.isfinite(loss) and torch.isfinite(grad).all()
-    assert grad.abs().max() > 0
-
-
-def test_hello_world_render_matches():
-    """The second ported asset (a box under a point light, no projector):
-    the same deterministic one-bounce render in both packages."""
-    from fireflies_tpu_torch.assets import scenes as tc_scenes
-    from fireflies_tpu_torch.render import SceneBridge as TcBridge
-
-    js, kw = jx_scenes.hello_world()
-    jp = {k: np.asarray(v) for k, v in jax.jit(js.compile())(jax.random.key(2), 0).items()}
-    jscene = JxBridge(js, **kw).assemble({k: jnp.asarray(v) for k, v in jp.items()})
-    ts, tkw = tc_scenes.hello_world()
-    tscene = TcBridge(ts, **tkw).assemble(from_jax_params(jp, "cpu"))
-    o, d, _ = jx_rays.camera_rays_tiled(jscene.camera, W, H, key=None)
-    img_j = np.asarray(jax.jit(lambda s: jx_pt.trace_rays(
-        s, o, d, jax.random.key(0), _cfg("jax", 1), primary_origin=s.camera.to_world[:3, 3]))(
-            jscene))
-    ot, dt, _ = tc_rays.camera_rays_tiled(tscene.camera, W, H)
-    with torch.no_grad():
-        img_t = tc_pt.trace_rays(tscene, ot, dt, None, _cfg("torch", 1),
-                                 primary_origin=tscene.camera.to_world[:, :3, 3])[0].numpy()
-    assert img_j.max() > 0
-    bad = np.abs(img_t - img_j).max(axis=1) > 1e-4 * np.abs(img_j).max()
-    assert bad.mean() <= 1e-3, f"{bad.sum()} of {bad.size} pixels differ"

@@ -6,9 +6,7 @@ faces) and a 128x32 film (two 2048-ray tiles).  The dispatcher's face-count
 thresholds are lowered to 0 so that these routes' plain versions run at
 this size.
 
-  * coherent bounce draw: one set of 5 uniforms per 2048-ray tile, repeated
-    over the tile, and the BSDF sample it drives against JAX `sample_v`
-    with the same per-tile numpy uniforms (1e-5 relative, 1e-6 absolute);
+  * the coherent bounce draw is held in tests/test_torch_coherent_draw.py;
   * streamed route, deterministic one-bounce render (pixel-centre rays)
     within 1e-4 of the image max on >= 99.9% of pixels, and the beam
     gradient within 1e-3 relative L2, as tests/test_torch_render.py holds
@@ -29,19 +27,15 @@ from fireflies_tpu.assets import scenes as jx_scenes
 from fireflies_tpu.projection import laser as jx_laser
 from fireflies_tpu.render import RenderConfig as JxConfig
 from fireflies_tpu.render import SceneBridge as JxBridge
-from fireflies_tpu.render import bsdf as jx_bsdf
 from fireflies_tpu.render import pathtracer as jx_pt
 from fireflies_tpu.render import rays as jx_rays
-from fireflies_tpu.render import vec3 as jx_vec3
 from fireflies_tpu_torch import main_path
 from fireflies_tpu_torch.interop import from_jax_params
 from fireflies_tpu_torch.projection import laser as tc_laser
 from fireflies_tpu_torch.render import RenderConfig as TcConfig
-from fireflies_tpu_torch.render import bsdf as tc_bsdf
 from fireflies_tpu_torch.render import intersect as tc_intersect
 from fireflies_tpu_torch.render import pathtracer as tc_pt
 from fireflies_tpu_torch.render import rays as tc_rays
-from fireflies_tpu_torch.render import vec3 as tc_vec3
 
 torch.set_num_threads(2)
 
@@ -93,50 +87,6 @@ def jax_means(setup):
     return np.asarray(jax.jit(jax.vmap(
         lambda k: jnp.mean(jx_pt.render_rgb(scene_j, k, cfg_j))))(
             jax.random.split(jax.random.key(1), SEEDS)))
-
-
-def test_coherent_bounce_draw_matches():
-    n = 5000  # three tiles, the last one partial
-    gens = main_path.generators([3, 4], "cpu")
-    uniforms = tc_pt.coherent_uniforms(gens, n, "cpu")
-    assert len(uniforms) == 5 and uniforms[0].shape == (2, n)
-    for u in uniforms:
-        tiles = [u[:, k * 2048:(k + 1) * 2048] for k in range(3)]
-        for t in tiles:
-            assert torch.equal(t, t[:, :1].expand_as(t))  # one draw per tile
-        assert len({float(t[0, 0]) for t in tiles}) == 3
-    ref = torch.rand((5, 3), generator=torch.Generator().manual_seed(3))
-    assert torch.equal(torch.stack(uniforms)[:, 0, ::2048], ref)
-
-    # The per-tile draws drive the BSDF sample as in the reference.
-    rng = np.random.default_rng(9)
-    nrm = rng.normal(size=(n, 3)).astype(np.float32)
-    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-    wo = rng.normal(size=(n, 3)).astype(np.float32)
-    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
-    wo = np.where(np.sum(wo * nrm, -1, keepdims=True) < 0, -wo, wo)
-    u = np.repeat(rng.uniform(size=(5, 3)).astype(np.float32), 2048, axis=1)[:, :n]
-    mat = dict(base_color=(0.78, 0.35, 0.34), roughness=0.35, specular=0.6, metallic=0.0,
-               spec_tint=0.0, clearcoat=0.0, clearcoat_gloss=1.0, sheen=0.0, sheen_tint=0.5,
-               anisotropic=0.0, spec_trans=0.0, flatness=0.0, ior=1.5, thin=0.0,
-               emission=(0.0, 0.0, 0.0))
-
-    def params(lib):
-        out = {}
-        for k, v in mat.items():
-            a = np.broadcast_to(np.asarray(v, np.float32), (n, 3) if np.ndim(v) else (n,)).copy()
-            out[k] = jnp.asarray(a) if lib == "jax" else torch.as_tensor(a)
-        out["_flags"] = frozenset()
-        return out
-
-    wi_j, _, _ = jx_bsdf.sample_v(params("jax"), jx_vec3.from_array(jnp.asarray(nrm)),
-                                  jx_vec3.from_array(jnp.asarray(wo)), None,
-                                  uniforms=tuple(jnp.asarray(x) for x in u))
-    wi_t, _, _ = tc_bsdf.sample_v(params("torch"), tc_vec3.from_array(torch.as_tensor(nrm)),
-                                  tc_vec3.from_array(torch.as_tensor(wo)),
-                                  uniforms=tuple(torch.as_tensor(x) for x in u))
-    np.testing.assert_allclose(wi_t.to_array().numpy(), np.asarray(wi_j.to_array()),
-                               rtol=1e-5, atol=1e-6)
 
 
 def _jx_image(jx_assemble, beams):

@@ -1,12 +1,12 @@
-"""Port parity: scene construction, randomization, assembly and the laser
-pattern against the JAX package on the vocalfold scene.
+"""Port parity: scene construction, randomization and assembly against the
+JAX package on the vocalfold scene (the laser pattern is in
+tests/test_torch_lights.py).
 
 Tolerances: topology and eval-mode sweeps exact; assembled scene arrays
 and beam parameters to 1e-6.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,7 +16,6 @@ from fireflies_tpu.projection import laser as jx_laser
 from fireflies_tpu.render import SceneBridge as JxBridge
 from fireflies_tpu_torch.assets import scenes as tc_scenes
 from fireflies_tpu_torch.interop import from_jax_params
-from fireflies_tpu_torch.projection import laser as tc_laser
 from fireflies_tpu_torch.render import SceneBridge as TcBridge
 
 torch.set_num_threads(2)
@@ -99,20 +98,3 @@ def test_assemble_from_jax_params(bridges):
     assert ts_scene.lights.kinds == tuple(np.asarray(js_scene.lights.kinds).tolist())
     assert ts_scene.projector.beam_hw == js_scene.projector.beam_hw
     assert ts_scene.materials.flags == js_scene.materials.flags
-
-
-def test_laser_pattern_matches():
-    rays_t = tc_laser.generate_uniform_rays(0.0275, 12, 12, device="cpu")
-    rays_j = jx_laser.generate_uniform_rays(0.0275, 12, 12)
-    assert rays_t.shape == (144, 3)
-    np.testing.assert_allclose(rays_t.numpy(), np.asarray(rays_j), rtol=1e-6, atol=1e-6)
-    rng = np.random.default_rng(0)
-    d = rng.normal(size=(37, 3)).astype(np.float32) * [0.2, 0.2, 1.0]
-    d[:, 2] = -np.abs(d[:, 2]) - 0.5
-    bp_t = tc_laser.rays_to_beam_params(torch.as_tensor(d), 30.0, sigma=7.0,
-                                        texture_size=(128, 64))
-    bp_j = jx_laser.rays_to_beam_params(jnp.asarray(d), 30.0, sigma=7.0, texture_size=(128, 64))
-    assert set(bp_t) == set(bp_j)
-    assert bp_t["tex.beam_hw"] == bp_j["tex.beam_hw"]
-    for k in ("tex.beams", "tex.beam_sigma", "tex.beam_color"):
-        np.testing.assert_allclose(bp_t[k].numpy(), np.asarray(bp_j[k]), rtol=1e-6, atol=1e-6)
