@@ -14,6 +14,10 @@ with 2 bounces through `main_path.render_batch` / `pattern_step`
   * main_unculled and reference_unculled: main and the reference shape with
     tile culling off (`RenderConfig.tile_cull=False`, the reference's
     FF_NO_TILE_CULL=1): B6 and B3; B7s and B7g with the attribute gather.
+The kernels' bodies (`body` in the kernels line): B1, B2, B6 and B7s share
+`csrc/intersect_shared.cuh` (staged batches, a slab vote per warp), B3 and
+B5 `csrc/intersect_general.cuh` (staged batches, each ray tested against
+the clusters its own slab test opens), B4 and B7g `csrc/intersect_stream.cuh`.
 Then X1, the reference's parked matrix-unit intersection, through its own
 entry point on the camera rays of the main and reference shapes, and the
 probe's FP32 throughput kernel X2 and kernel roof.
@@ -119,8 +123,8 @@ def bound(name: str, rec: dict, n_out: int, tested) -> dict:
     rate of FP32 operations with a fused multiply-add as one
     (`perf_probe.PEAK_*`).  The operations are the pairs the kernel tested
     on this launch's data (`tested`: per live ray, the clusters its faces
-    were tested against after the slab test, its block's vote or, in B4 and
-    B7g, its own) x the faces of a cluster x
+    were tested against after the slab test, its warp's vote in B1, B2, B6
+    and B7s, its own in B3, B4, B5 and B7g) x the faces of a cluster x
     `perf_probe.OPS_PER_PAIR`, the fused count of its pair test; the
     per-cluster slab tests are left out.
     Also the pairs on the tile lists (every cluster without lists), which
@@ -539,22 +543,31 @@ B1, B3 = "intersect_shared_culled", "intersect_general"
 B2, B4 = "intersect_stream_culled", "intersect_stream_general_culled"
 B5 = "intersect_general_culled"
 B6, B7S, B7G = "intersect_shared", "intersect_stream", "intersect_stream_general"
+# name: (entry point's source, the kernel body it instantiates, the TPU kernel)
 SOURCES = {
     B1: ("fireflies_tpu_torch/csrc/intersect_shared_culled.cu",
+         "fireflies_tpu_torch/csrc/intersect_shared.cuh",
          "fireflies_tpu/render/pallas/intersect_culled.py:700"),
     B3: ("fireflies_tpu_torch/csrc/intersect_general.cu",
+         "fireflies_tpu_torch/csrc/intersect_general.cuh",
          "fireflies_tpu/render/pallas/intersect_kernel.py:602"),
     B2: ("fireflies_tpu_torch/csrc/intersect_stream_culled.cu",
+         "fireflies_tpu_torch/csrc/intersect_shared.cuh",
          "fireflies_tpu/render/pallas/intersect_stream.py:644"),
     B4: ("fireflies_tpu_torch/csrc/intersect_stream_general_culled.cu",
+         "fireflies_tpu_torch/csrc/intersect_stream.cuh",
          "fireflies_tpu/render/pallas/intersect_stream.py:1097"),
     B5: ("fireflies_tpu_torch/csrc/intersect_general_culled.cu",
+         "fireflies_tpu_torch/csrc/intersect_general.cuh",
          "fireflies_tpu/render/pallas/intersect_culled.py:465"),
     B6: ("fireflies_tpu_torch/csrc/intersect_shared.cu",
+         "fireflies_tpu_torch/csrc/intersect_shared.cuh",
          "fireflies_tpu/render/pallas/intersect_kernel.py:522"),
     B7S: ("fireflies_tpu_torch/csrc/intersect_stream.cu",
+          "fireflies_tpu_torch/csrc/intersect_shared.cuh",
           "fireflies_tpu/render/pallas/intersect_stream.py:713"),
     B7G: ("fireflies_tpu_torch/csrc/intersect_stream_general.cu",
+          "fireflies_tpu_torch/csrc/intersect_stream.cuh",
           "fireflies_tpu/render/pallas/intersect_stream.py:740"),
 }
 
@@ -630,14 +643,14 @@ def main() -> int:
     log(f"[probe] {time.perf_counter() - t_probe:.1f} s")
 
     kernels = []
-    for name, (src, replaces) in SOURCES.items():
+    for name, (src, body, replaces) in SOURCES.items():
         mine = [r for r in kres.values() if r["kernel"] == name and r["path"] == kernel_path[name]]
         closest = next(r for r in mine if not r["any_hit"])
         # The path's own any-hit launch where it has one (shadow rays), else
         # a closest-hit launch replayed as any-hit.
         any_hit = min((r for r in mine if r["any_hit"]), key=lambda r: r["replayed"])
         entry = {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "name": name, "route": "cuda", "source": src, "body": body, "replaces": replaces,
             "path": kernel_path[name], "launches": launches[name],
             "ops_per_pair": OPS_PER_PAIR[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),

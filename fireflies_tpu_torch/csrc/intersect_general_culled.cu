@@ -7,139 +7,36 @@
 // tile walks only the 64-face clusters on its list (tile_cluster_lists_general
 // in plain tensor ops: the tile's origin and direction boxes against each
 // cluster box, sorted front to back from the tile's origins), with the
-// rational Moller-Trumbore test of intersect_general.cu and an AABB slab test
-// per cluster that skips clusters farther than every ray's current best hit.
+// rational Moller-Trumbore test of intersect_general.cu.  The dispatcher
+// sends it bounce rays of scenes from 4096 to 8192 faces.
 //
-// What bounds it on this card: arithmetic, about 60 float operations per
-// ray-triangle pair.  A cluster's 9 triangle rows (36 bytes a face) are read
-// once per block into shared memory and broadcast to all threads; the
+// What bounds it on this card: the instructions the tested ray-triangle
+// pairs issue, 48 operations a pair with its products fused into adds; the
 // per-variant triangle table and the lists stay in L2, so device memory
-// traffic is the rays in and (t, prim) out.
-//
-// The simple design: one thread per ray, 256 rays per block, grid
-// (R / 256, B); the eight blocks of a tile read the same list.  The block
-// votes on each cluster's slab test (__syncthreads_or) and skips it
-// together; an all-dead block skips the list (closest hit) and any-hit mode
-// leaves the loop once every live ray is blocked or dead (__syncthreads_and).
-// Dead rays (tmax < 0) never hit.  `tested`, unless null, gets each live
-// ray's number of clusters whose faces its block tested (0 for a dead ray),
-// the count that the pair-test bound of a launch is taken from.
+// traffic is the rays in and (t, prim) out.  The body is B3's,
+// intersect_general.cuh, over the tile's list: four listed clusters staged
+// a batch with cp.async, each ray tested only against the clusters its own
+// slab test opens (bounce rays are not coherent, so a vote over a warp or a
+// block opens clusters for rays that do not need them), the batch's open
+// (ray, cluster) entries shared out as tasks of 32 lanes, fused P, det, u,
+// v.  The eight blocks of a tile read the same list.
 
-#include <cuda_runtime.h>
+#include "intersect_general.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kRayTile = 2048;
 constexpr int kChunk = 64;  // faces per cluster (the reference dispatcher's _GEN_CULL_CHUNK)
-constexpr float kBig = 3.0e38f;
-constexpr float kEpsDet = 1e-9f;
-constexpr float kEpsBary = 1e-6f;
-
-__device__ __forceinline__ float safe_inv(float x) {
-  if (fabsf(x) < 1e-30f) return x < 0.0f ? -1e30f : 1e30f;
-  return 1.0f / x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-intersect_general_culled_kernel(const float* __restrict__ rays, const float* __restrict__ tmax_in,
-                                const float* __restrict__ tri, const float* __restrict__ boxes,
-                                const int* __restrict__ lists, const int* __restrict__ counts,
-                                float* __restrict__ out_t, int* __restrict__ out_prim,
-                                int* __restrict__ tested, int R, int tpad, int nc, float t_min,
-                                int any_hit) {
-  __shared__ float s_tri[9 * kChunk];
-  const int b = blockIdx.y;
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const int n_tiles = R / kRayTile;
-  const int tile = (blockIdx.x * kThreads) / kRayTile;
-  const float* ray = rays + (size_t)b * 6 * R;
-  const float ox = ray[r], oy = ray[R + r], oz = ray[2 * R + r];
-  const float dx = ray[3 * R + r], dy = ray[4 * R + r], dz = ray[5 * R + r];
-  const float tmax = tmax_in[(size_t)b * R + r];
-  const bool dead = tmax < 0.0f;
-  const float* tri_b = tri + (size_t)b * 9 * tpad;
-  const float* box_b = boxes + (size_t)b * 6 * nc;
-  const int* list = lists + ((size_t)b * n_tiles + tile) * nc;
-  const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
-
-  float btn = kBig, bdn = 1.0f;
-  int bp = -1, n_tested = 0;
-  int n_listed = __ldg(counts + (size_t)b * n_tiles + tile);
-  if (!any_hit && __syncthreads_and(dead)) n_listed = 0;
-  for (int ci = 0; ci < n_listed; ++ci) {
-    if (any_hit && __syncthreads_and(bp >= 0 || dead)) break;
-    const int c = __ldg(list + ci);
-    const float best_t = btn / bdn;
-    const float t0x = (__ldg(box_b + 0 * nc + c) - ox) * inv_dx;
-    const float t1x = (__ldg(box_b + 3 * nc + c) - ox) * inv_dx;
-    const float t0y = (__ldg(box_b + 1 * nc + c) - oy) * inv_dy;
-    const float t1y = (__ldg(box_b + 4 * nc + c) - oy) * inv_dy;
-    const float t0z = (__ldg(box_b + 2 * nc + c) - oz) * inv_dz;
-    const float t1z = (__ldg(box_b + 5 * nc + c) - oz) * inv_dz;
-    const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fmaxf(fminf(t0z, t1z), t_min));
-    const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                             fminf(fmaxf(t0z, t1z), fminf(tmax, best_t)));
-    if (!__syncthreads_or(tnear <= tfar)) continue;
-    ++n_tested;
-
-    for (int i = threadIdx.x; i < 9 * kChunk; i += kThreads) {
-      const int k = i / kChunk, j = i - k * kChunk;
-      s_tri[i] = __ldg(tri_b + (size_t)k * tpad + (size_t)c * kChunk + j);
-    }
-    __syncthreads();
-    for (int j = 0; j < kChunk; ++j) {
-      const float v0x = s_tri[0 * kChunk + j], v0y = s_tri[1 * kChunk + j];
-      const float v0z = s_tri[2 * kChunk + j];
-      const float e1x = s_tri[3 * kChunk + j], e1y = s_tri[4 * kChunk + j];
-      const float e1z = s_tri[5 * kChunk + j];
-      const float e2x = s_tri[6 * kChunk + j], e2y = s_tri[7 * kChunk + j];
-      const float e2z = s_tri[8 * kChunk + j];
-      const float px = dy * e2z - dz * e2y;
-      const float py = dz * e2x - dx * e2z;
-      const float pz = dx * e2y - dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      const float sgn = det >= 0.0f ? 1.0f : -1.0f;
-      const float dn = det * sgn;
-      const float un = (tx * px + ty * py + tz * pz) * sgn;
-      const float vn = (dx * qx + dy * qy + dz * qz) * sgn;
-      const float tn = (e2x * qx + e2y * qy + e2z * qz) * sgn;
-      const float eb = kEpsBary * dn;
-      const bool ok = dn >= kEpsDet && un >= -eb && vn >= -eb && un + vn <= dn + eb &&
-                      tn > t_min * dn && tn < tmax * dn && tn * bdn < btn * dn;
-      if (ok) {
-        btn = tn;
-        bdn = dn;
-        bp = c * kChunk + j;
-      }
-    }
-    __syncthreads();
-  }
-  out_t[(size_t)b * R + r] = bp >= 0 ? btn / bdn : 0.0f;
-  out_prim[(size_t)b * R + r] = bp;
-  if (tested != nullptr) tested[(size_t)b * R + r] = dead ? 0 : n_tested;
-}
-
 }  // namespace
 
-// rays (B, 6, R), tmax (B, R), tri (B, 9, tpad), boxes (B, 6, nc), lists
-// (B, R / 2048, nc), counts (B, R / 2048) -> out_t, out_prim and, unless null,
-// tested (B, R).  R must be a multiple of 2048 and tpad == nc * 64.
+// rays (B, 6, R), tmax (B, R), tri (B, 9, tpad) 16-byte aligned, boxes
+// (B, 6, nc), lists (B, R / 2048, nc), counts (B, R / 2048) -> out_t,
+// out_prim and, unless null, tested (B, R).  R must be a multiple of 2048
+// and tpad == nc * 64.
 extern "C" int ff_intersect_general_culled(const float* rays, const float* tmax, const float* tri,
                                            const float* boxes, const int* lists,
                                            const int* counts, float* out_t, int* out_prim,
                                            int* tested, int B, int R, int tpad, int nc,
                                            float t_min, int any_hit, void* stream) {
-  if (B <= 0 || R <= 0) return 0;
-  if (R % kRayTile != 0 || tpad != nc * kChunk) return (int)cudaErrorInvalidValue;
-  const dim3 grid(R / kThreads, B);
-  intersect_general_culled_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rays, tmax, tri, boxes, lists, counts, out_t, out_prim, tested, R, tpad, nc, t_min,
-      any_hit);
-  return (int)cudaGetLastError();
+  return ff_general::launch_intersect_general<true, kChunk>(rays, tmax, tri, boxes, lists, counts,
+                                                            out_t, out_prim, tested, B, R, tpad,
+                                                            nc, t_min, any_hit, stream);
 }

@@ -27,7 +27,7 @@ extern "C" int ff_intersect_shared(const float* dirs, const float* tmax, const f
                                    const float* boxes, const int* order, float* out_t,
                                    int* out_prim, int* tested, int B, int R, int tpad, int nc,
                                    int chunk, float t_min, int any_hit, void* stream) {
-  return ff_shared::launch_intersect_shared<false, false>(dirs, tmax, woop, boxes, order, nullptr,
-                                                          out_t, out_prim, tested, B, R, tpad,
-                                                          nc, chunk, t_min, any_hit, stream);
+  return ff_shared::launch_intersect_shared<ff_shared::kRows, false, false>(
+      dirs, tmax, woop, boxes, order, nullptr, out_t, out_prim, nullptr, nullptr, nullptr,
+      nullptr, tested, B, R, tpad, nc, chunk, t_min, any_hit, stream);
 }

@@ -31,7 +31,7 @@ extern "C" int ff_intersect_shared_culled(const float* dirs, const float* tmax,
                                           int* out_prim, int* tested, int B, int R, int tpad,
                                           int nc, int chunk, float t_min, int any_hit,
                                           void* stream) {
-  return ff_shared::launch_intersect_shared<true, true>(dirs, tmax, woop, boxes, lists, counts,
-                                                        out_t, out_prim, tested, B, R, tpad, nc,
-                                                        chunk, t_min, any_hit, stream);
+  return ff_shared::launch_intersect_shared<ff_shared::kRows, true, true>(
+      dirs, tmax, woop, boxes, lists, counts, out_t, out_prim, nullptr, nullptr, nullptr, nullptr,
+      tested, B, R, tpad, nc, chunk, t_min, any_hit, stream);
 }

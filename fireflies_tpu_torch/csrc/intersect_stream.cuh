@@ -1,32 +1,27 @@
-// The shared body of the four streamed Woop kernels for Hopper (sm_90a):
-// intersect_stream_culled.cu (B2) and intersect_stream_general_culled.cu
-// (B4) walk per-tile cluster lists; intersect_stream.cu (B7s) and
-// intersect_stream_general.cu (B7g) walk every cluster in index order.
+// The shared body of the two streamed general-origin Woop kernels for Hopper
+// (sm_90a): intersect_stream_general_culled.cu (B4) walks per-tile cluster
+// lists; intersect_stream_general.cu (B7g) walks every cluster in index
+// order.  (The streamed shared-origin kernels, B2 and B7s, run on B1's body,
+// intersect_shared.cuh.)
 //
 // A block of 256 rays walks 128-face clusters: with lists (kLists), its
 // 2048-ray tile's front-to-back list; without, clusters 0 .. nc - 1.  A
-// cluster's rows of the packed Woop table (W rows 0-8, o' or W v0 rows 9-11,
-// and for the shared-origin kernels the material id in row 12) are copied
-// from device memory into one of two shared-memory buffers with cp.async, 16
-// bytes a thread: while the block tests cluster i it already copies the next
-// cluster into the other buffer, the card's counterpart of the Pallas
-// kernels' DMA double buffer.  Each cluster's slab test decides whether its
-// faces are tested, and a pruned cluster skips its arithmetic but not its
-// copy.  In any-hit mode the block leaves the walk once every live ray is
-// blocked or dead (__syncthreads_and), and waits for the copy still in
-// flight before it exits, since the shared memory it targets is handed to
-// the next block.  `tested`, unless null, gets each live ray's number of
-// clusters whose faces it was tested against (0 for a dead ray), the count
-// that the pair-test bound of a launch is taken from.
+// cluster's rows 0-11 of the packed Woop table (W rows 0-8, W v0 rows 9-11)
+// are copied from device memory into one of two shared-memory buffers with
+// cp.async, 16 bytes a thread: while the block tests cluster i it already
+// copies the next cluster into the other buffer, the card's counterpart of
+// the Pallas kernels' DMA double buffer.  In any-hit mode the block leaves
+// the walk once every live ray is blocked or dead (__syncthreads_and), and
+// waits for the copy still in flight before it exits, since the shared
+// memory it targets is handed to the next block.  `tested`, unless null,
+// gets each live ray's number of clusters whose faces it was tested against
+// (0 for a dead ray), the count that the pair-test bound of a launch is
+// taken from.
 //
-// stream_kernel, the shared-origin kernels (B2, B7s): each thread tests its
-// ray against every face of a cluster that the block's vote
-// (__syncthreads_or) opens, and carries the best hit's normal and material.
-//
-// stream_general_kernel, the general-origin kernels (B4, B7g), is built for
-// the card's fused multiply-add pipe.  What bounds it is the instructions
-// the tested pairs issue: the counted test is 41 operations with every
-// product that feeds an add fused into it, against 58 unfused.  So:
+// stream_general_kernel is built for the card's fused multiply-add pipe.
+// What bounds it is the instructions the tested pairs issue: the counted
+// test is 41 operations with every product that feeds an add fused into it,
+// against 58 unfused.  So:
 //   * its fused steps are explicit __fmaf_rn in an order written below (the
 //     build keeps --fmad=false, so no other operation of any kernel is
 //     contracted): o'_k = fma(W_k2, oz, fma(W_k1, oy, fma(W_k0, ox,
@@ -72,7 +67,6 @@ using ff_tasks::lane;
 constexpr int kRayTile = 2048;
 constexpr int kChunk = 128;     // faces per streamed cluster
 constexpr int kWoopRows = 16;   // rows of the packed table in device memory
-constexpr int kCopyRows = 13;   // rows a shared-origin kernel reads: W, o', material
 constexpr int kGeneralRows = 12;  // rows a general kernel reads: W, W v0
 constexpr int kMatRow = 12;
 constexpr int kVecPerRow = kChunk / 4;
@@ -98,119 +92,6 @@ __device__ __forceinline__ void copy_cluster(float* buf, const float* woop_b, in
     cp_async16(buf + k * kChunk + 4 * q, woop_b + (size_t)k * tpad + (size_t)c * kChunk + 4 * q);
   }
   cp_async_commit();
-}
-
-// The shared-origin kernels (B2, B7s): rays (B, 3, R) directions from a
-// shared origin, woop rows 9-11 = o' = W (o - v0), boxes origin-shifted.
-// kLists = false: lists and counts are unused (null).  out_nx .. out_mat may
-// be null (no attributes), and so may tested.
-template <bool kLists>
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const float* __restrict__ rays, const float* __restrict__ tmax_in,
-              const float* __restrict__ woop, const float* __restrict__ boxes,
-              const int* __restrict__ lists, const int* __restrict__ counts,
-              float* __restrict__ out_t, int* __restrict__ out_prim,
-              float* __restrict__ out_nx, float* __restrict__ out_ny,
-              float* __restrict__ out_nz, int* __restrict__ out_mat,
-              int* __restrict__ tested, int R, int tpad, int nc, float t_min, int any_hit) {
-  constexpr int kBufFloats = kCopyRows * kChunk;
-  __shared__ __align__(16) float s_w[2 * kBufFloats];
-  const int b = blockIdx.y;
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const int n_tiles = R / kRayTile;
-  const int tile = (blockIdx.x * kThreads) / kRayTile;
-  const float* dir = rays + (size_t)b * 3 * R;
-  const float ox = 0.0f, oy = 0.0f, oz = 0.0f;  // boxes and o' are origin-relative
-  const float dx = dir[r], dy = dir[R + r], dz = dir[2 * R + r];
-  const float tmax = tmax_in[(size_t)b * R + r];
-  const bool dead = tmax < 0.0f;
-  const float* woop_b = woop + (size_t)b * kWoopRows * tpad;
-  const float* box_b = boxes + (size_t)b * 6 * nc;
-  const int* list = kLists ? lists + ((size_t)b * n_tiles + tile) * nc : nullptr;
-  const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy), inv_dz = safe_inv(dz);
-  auto cluster = [&](int ci) { return kLists ? __ldg(list + ci) : ci; };
-
-  float btn = kBig, bdn = 1.0f, bnx = 0.0f, bny = 0.0f, bnz = 1.0f, bmat = 0.0f;
-  int bp = -1, n_tested = 0;
-  int n_listed = kLists ? __ldg(counts + (size_t)b * n_tiles + tile) : nc;
-  if (!any_hit && __syncthreads_and(dead)) n_listed = 0;
-  if (n_listed > 0) copy_cluster<kCopyRows>(s_w, woop_b, tpad, cluster(0));
-  for (int ci = 0; ci < n_listed; ++ci) {
-    if (any_hit && __syncthreads_and(bp >= 0 || dead)) break;
-    const int c = cluster(ci);
-    const float* cur = s_w + (ci & 1) * kBufFloats;
-    if (ci + 1 < n_listed) {
-      // The other buffer was last read before the previous barrier.
-      copy_cluster<kCopyRows>(s_w + ((ci + 1) & 1) * kBufFloats, woop_b, tpad,
-                              cluster(ci + 1));
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const float best_t = btn / bdn;
-    const float t0x = (__ldg(box_b + 0 * nc + c) - ox) * inv_dx;
-    const float t1x = (__ldg(box_b + 3 * nc + c) - ox) * inv_dx;
-    const float t0y = (__ldg(box_b + 1 * nc + c) - oy) * inv_dy;
-    const float t1y = (__ldg(box_b + 4 * nc + c) - oy) * inv_dy;
-    const float t0z = (__ldg(box_b + 2 * nc + c) - oz) * inv_dz;
-    const float t1z = (__ldg(box_b + 5 * nc + c) - oz) * inv_dz;
-    const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fmaxf(fminf(t0z, t1z), t_min));
-    const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                             fminf(fmaxf(t0z, t1z), fminf(tmax, best_t)));
-    if (!__syncthreads_or(tnear <= tfar)) continue;
-    ++n_tested;
-
-    for (int j0 = 0; j0 < kChunk; j0 += 4) {
-      float4 w[kCopyRows];
-#pragma unroll
-      for (int k = 0; k < kCopyRows; ++k) {
-        w[k] = *reinterpret_cast<const float4*>(cur + k * kChunk + j0);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float w00 = lane(w[0], q), w01 = lane(w[1], q), w02 = lane(w[2], q);
-        const float w10 = lane(w[3], q), w11 = lane(w[4], q), w12 = lane(w[5], q);
-        const float w20 = lane(w[6], q), w21 = lane(w[7], q), w22 = lane(w[8], q);
-        const float opx = lane(w[9], q), opy = lane(w[10], q), opz = lane(w[11], q);
-        const float dpx = w00 * dx + w01 * dy + w02 * dz;
-        const float dpy = w10 * dx + w11 * dy + w12 * dz;
-        const float dpz = w20 * dx + w21 * dy + w22 * dz;
-        const float sgn = dpz >= 0.0f ? 1.0f : -1.0f;
-        const float dn = dpz * sgn;
-        const float tn = -opz * sgn;
-        const float u_n = opx * dn + tn * dpx;
-        const float v_n = opy * dn + tn * dpy;
-        const bool ok = dn > 1e-12f && u_n >= -kEpsBary * dn && v_n >= -kEpsBary * dn &&
-                        u_n + v_n <= (1.0f + kEpsBary) * dn && tn > t_min * dn &&
-                        tn < tmax * dn && tn * bdn < btn * dn;
-        if (ok) {
-          btn = tn;
-          bdn = dn;
-          bp = c * kChunk + j0 + q;
-          bnx = w20;
-          bny = w21;
-          bnz = w22;
-          bmat = lane(w[12], q);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();  // drain the copy an early exit leaves in flight
-
-  const size_t o = (size_t)b * R + r;
-  out_t[o] = bp >= 0 ? btn / bdn : 0.0f;
-  out_prim[o] = bp;
-  if (out_nx != nullptr) {
-    out_nx[o] = bnx;
-    out_ny[o] = bny;
-    out_nz[o] = bnz;
-    out_mat[o] = (int)bmat;
-  }
-  if (tested != nullptr) tested[o] = dead ? 0 : n_tested;
 }
 
 // The general Woop pair test of B4 and B7g for run_tasks: rows W0, W1, W2
@@ -244,8 +125,9 @@ struct WoopGeneral {
 };
 
 // The general-origin kernels (B4, B7g): rays (B, 6, R) origins then
-// directions, woop rows 9-11 = W v0, boxes in world space; otherwise as
-// stream_kernel.
+// directions, woop rows 9-11 = W v0, boxes in world space.  kLists = false:
+// lists and counts are unused (null).  out_nx .. out_mat may be null (no
+// attributes), and so may tested.
 template <bool kLists>
 __global__ void __launch_bounds__(kThreads, kGeneralMinBlocks)
 stream_general_kernel(const float* __restrict__ rays, const float* __restrict__ tmax_in,
@@ -350,15 +232,16 @@ stream_general_kernel(const float* __restrict__ rays, const float* __restrict__ 
   if (tested != nullptr) tested[o] = dead ? 0 : n_tested;
 }
 
-// rays (B, 3 or 6, R), tmax (B, R), woop (B, 16, tpad), boxes (B, 6, nc) and,
+// rays (B, 6, R), tmax (B, R), woop (B, 16, tpad), boxes (B, 6, nc) and,
 // with kLists, lists (B, R / 2048, nc), counts (B, R / 2048) -> out_t,
 // out_prim and, unless null, out_nx/ny/nz/mat and tested (B, R).  R must be a
 // multiple of 2048, tpad == nc * 128, and woop 16-byte aligned.
-template <bool kGeneral, bool kLists>
-int launch_stream(const float* rays, const float* tmax, const float* woop, const float* boxes,
-                  const int* lists, const int* counts, float* out_t, int* out_prim, float* out_nx,
-                  float* out_ny, float* out_nz, int* out_mat, int* tested, int B, int R, int tpad,
-                  int nc, float t_min, int any_hit, void* stream) {
+template <bool kLists>
+int launch_stream_general(const float* rays, const float* tmax, const float* woop,
+                          const float* boxes, const int* lists, const int* counts, float* out_t,
+                          int* out_prim, float* out_nx, float* out_ny, float* out_nz,
+                          int* out_mat, int* tested, int B, int R, int tpad, int nc, float t_min,
+                          int any_hit, void* stream) {
   if (B <= 0 || R <= 0) return 0;
   if (R % kRayTile != 0 || tpad != nc * kChunk) return (int)cudaErrorInvalidValue;
   if (kLists && (lists == nullptr || counts == nullptr)) return (int)cudaErrorInvalidValue;
@@ -368,16 +251,9 @@ int launch_stream(const float* rays, const float* tmax, const float* woop, const
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid(R / kThreads, B);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (kGeneral) {
-    stream_general_kernel<kLists><<<grid, kThreads, 0, s>>>(
-        rays, tmax, woop, boxes, lists, counts, out_t, out_prim, out_nx, out_ny, out_nz, out_mat,
-        tested, R, tpad, nc, t_min, any_hit);
-  } else {
-    stream_kernel<kLists><<<grid, kThreads, 0, s>>>(
-        rays, tmax, woop, boxes, lists, counts, out_t, out_prim, out_nx, out_ny, out_nz, out_mat,
-        tested, R, tpad, nc, t_min, any_hit);
-  }
+  stream_general_kernel<kLists><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rays, tmax, woop, boxes, lists, counts, out_t, out_prim, out_nx, out_ny, out_nz, out_mat,
+      tested, R, tpad, nc, t_min, any_hit);
   return (int)cudaGetLastError();
 }
 

@@ -27,7 +27,7 @@ extern "C" int ff_intersect_stream_general(const float* rays, const float* tmax,
                                            const float* woop, const float* boxes, float* out_t,
                                            int* out_prim, int* tested, int B, int R, int tpad,
                                            int nc, float t_min, int any_hit, void* stream) {
-  return ff_stream::launch_stream<true, false>(rays, tmax, woop, boxes, nullptr, nullptr, out_t,
-                                               out_prim, nullptr, nullptr, nullptr, nullptr,
-                                               tested, B, R, tpad, nc, t_min, any_hit, stream);
+  return ff_stream::launch_stream_general<false>(
+      rays, tmax, woop, boxes, nullptr, nullptr, out_t, out_prim, nullptr, nullptr, nullptr,
+      nullptr, tested, B, R, tpad, nc, t_min, any_hit, stream);
 }

@@ -34,7 +34,7 @@ extern "C" int ff_intersect_stream_general_culled(const float* rays, const float
                                                   float* out_ny, float* out_nz, int* out_mat,
                                                   int* tested, int B, int R, int tpad, int nc,
                                                   float t_min, int any_hit, void* stream) {
-  return ff_stream::launch_stream<true, true>(rays, tmax, woop, boxes, lists, counts, out_t,
-                                              out_prim, out_nx, out_ny, out_nz, out_mat, tested,
-                                              B, R, tpad, nc, t_min, any_hit, stream);
+  return ff_stream::launch_stream_general<true>(
+      rays, tmax, woop, boxes, lists, counts, out_t, out_prim, out_nx, out_ny, out_nz, out_mat,
+      tested, B, R, tpad, nc, t_min, any_hit, stream);
 }

@@ -43,10 +43,12 @@ and kernel.  Every probe uses one variant of the vocalfold scene and
   Moller-Trumbore kernels.
 - votes: the launches of `VOTE_LAUNCHES`, each the first of its kernel and
   mode in one forward batch of 16 variants at 512x512 (the bounce launches
-  of B4, B7g and B3, B1's camera and first shadow launch on main and its
-  camera launch on mid, B6's camera launch on main_unculled): the fewest
-  pairs a slab vote over each ray alone, each 32-ray warp and each 256-ray
-  block would open, beside the pairs the kernel reports it tested.
+  of B4, B7g, B3 and B5, the camera and first shadow launches of B1 on main
+  and of B2 on reference, B1's camera launch on mid, the camera launches of
+  B6 on main_unculled and B7s on reference_unculled): the fewest pairs a
+  slab vote over each ray alone, each 32-ray warp and each 256-ray block
+  would open, beside the pairs the kernel reports it tested, and the lanes
+  tasks of 32 compacted entries would take.
 - launches: every launch of every intersection kernel in one forward
   batch of the shape chip_smoke.py reports it on (16 variants, 512x512):
   its time, live rays, the pairs it tested and the pairs its inputs need
@@ -579,8 +581,9 @@ def probe_sass(device) -> list[dict]:
     out = []
     for name, ins in sorted(sass_functions(text).items()):
         label = next((k for k, keys in KERNEL_NAMES.items() if any(x in name for x in keys)), name)
-        chunk = re.search(r"Li(\d+)E", name)  # a kernel built for several cluster sizes
-        suffix = f"_c{chunk.group(1)}" if chunk else ""
+        # A kernel built for several cluster sizes: its last int template argument.
+        chunk = re.findall(r"Li(\d+)E", name)
+        suffix = f"_c{chunk[-1]}" if chunk else ""
         out.append(_emit(f"sass_{label.split()[0]}{suffix}", function=name, kernel=label,
                          instructions=len(ins), **resources.get(name, {}),
                          **inner_loop_counts(ins)))
@@ -611,9 +614,9 @@ def vote_widths(rec: dict, t: Tensor, prim: Tensor, widths=(1, 32, 256),
     final t).  The running best never falls below the final t, so these are
     the fewest clusters each width could open.  Under the key "lanes", the
     lanes that tasks of 32 listed (ray, cluster) entries take at width 1
-    (B3, B4 and B7g): per 256-ray block and `batch` clusters staged at once
-    (consecutive in index order; B4 and B7g stage one), the opening pairs
-    rounded up to a multiple of 32.  `rec` holds a streamed or resident
+    (B3, B4, B5 and B7g): per 256-ray block and `batch` clusters staged at
+    once (consecutive on the tile's list, or in index order without lists;
+    B4 and B7g stage one), the opening pairs rounded up to a multiple of 32.  `rec` holds a streamed or resident
     launch's packed inputs (`Kernel.record`), `t` and `prim` its outputs."""
     rays_soa = rec["rays_soa"] if "rays_soa" in rec else rec["dirs_soa"]
     tmax_tiles, boxes = rec["tmax_tiles"], rec["boxes"]
@@ -640,6 +643,9 @@ def vote_widths(rec: dict, t: Tensor, prim: Tensor, widths=(1, 32, 256),
                 groups = opened.reshape(n // w, w, nc).any(dim=1).sum(dim=1)
                 totals[w] += float((groups * live.reshape(n // w, w).sum(dim=1)).double().sum())
             per_block = (opened & live[:, None]).reshape(n // 256, 256, nc).sum(dim=1)
+            if "lists" in rec and batch > 1:  # a batch holds consecutive listed clusters
+                tiles = torch.arange(s, s + n, 256, device=d.device) // ik.RAY_TILE
+                per_block = per_block.gather(1, rec["lists"][bi][tiles].long())
             pad = -nc % batch
             per_batch = torch.nn.functional.pad(per_block, (0, pad)).reshape(
                 n // 256, -1, batch).sum(dim=2)
@@ -660,18 +666,23 @@ def least_pairs(rec: dict, t: Tensor, prim: Tensor) -> float:
     return vote_widths(rec, t, prim, widths=(1,))[1] * faces_per_cluster(rec)
 
 
-# Faces B3 stages at once (kBatchFaces of csrc/intersect_general.cu): its
-# tasks' lanes are counted over such batches.
+# Faces B3 and B5 stage at once (kBatchFaces of csrc/intersect_general.cuh):
+# their tasks' lanes are counted over such batches.
 RESIDENT_BATCH_FACES = 256
+STAGED_KERNELS = ("intersect_general", "intersect_general_culled")
 # The launches `votes` reads: (shape, kernel name, mode), each the first
 # launch of that kernel and mode in one forward batch of the shape.
 VOTE_LAUNCHES = (
     ("reference", "intersect_stream_general_culled", "closest"),  # B4, bounce
+    ("reference", "intersect_stream_culled", "closest"),  # B2, camera
+    ("reference", "intersect_stream_culled", "any"),  # B2, first shadow
     ("reference_unculled", "intersect_stream_general", "closest"),  # B7g, bounce
+    ("reference_unculled", "intersect_stream", "closest"),  # B7s, camera
     ("main", "intersect_general", "closest"),  # B3, bounce
     ("main", "intersect_shared_culled", "closest"),  # B1, camera
     ("main", "intersect_shared_culled", "any"),  # B1, first shadow
     ("mid", "intersect_shared_culled", "closest"),  # B1, camera at 5288 faces
+    ("mid", "intersect_general_culled", "closest"),  # B5, bounce
     ("main_unculled", "intersect_shared", "closest"),  # B6, camera
 )
 # Each intersection kernel's wrapper on packed inputs, by kernel name.
@@ -715,7 +726,7 @@ def probe_votes(device, size: int = 512, batch: int = 16) -> list[dict]:
         tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
         t, prim = PACKED[name](**rec, tested=tested)[:2]
         faces = faces_per_cluster(rec)
-        staged = RESIDENT_BATCH_FACES // faces if name == "intersect_general" else 1
+        staged = RESIDENT_BATCH_FACES // faces if name in STAGED_KERNELS else 1
         pairs = {w: n * faces for w, n in vote_widths(rec, t, prim, batch=staged).items()}
         live = int((rec["tmax_tiles"] >= 0).sum())
         out.append(_emit(f"votes_{shape}_{name}_{mode}", kernel=name, live_rays=live,

@@ -34,16 +34,24 @@ import torch
 
 from fireflies_tpu_torch import main_path
 
-# Substrings of the hand-written kernels' names, demangled or mangled.
+# Substrings of the hand-written kernels' names, demangled or mangled.  Kernels
+# that share a template are told apart by its leading arguments: the table's
+# rows and lists for the shared-origin body (B1, B2, B6, B7s), lists for the
+# general one (B3, B5).
 KERNEL_NAMES = {
-    "B1 intersect_shared_culled": ("intersect_shared_kernel<true,", "intersect_shared_kernelILb1E"),
-    "B3 intersect_general": ("intersect_general_kernel",),
-    "B2 intersect_stream_culled": ("stream_kernel<true>", "stream_kernelILb1E"),
+    "B1 intersect_shared_culled": ("intersect_shared_kernel<12, true,",
+                                   "intersect_shared_kernelILi12ELb1E"),
+    "B3 intersect_general": ("intersect_general_kernel<false,", "intersect_general_kernelILb0E"),
+    "B2 intersect_stream_culled": ("intersect_shared_kernel<16, true,",
+                                   "intersect_shared_kernelILi16ELb1E"),
     "B4 intersect_stream_general_culled": ("stream_general_kernel<true>",
                                            "stream_general_kernelILb1E"),
-    "B5 intersect_general_culled": ("intersect_general_culled_kernel",),
-    "B6 intersect_shared": ("intersect_shared_kernel<false,", "intersect_shared_kernelILb0E"),
-    "B7s intersect_stream": ("stream_kernel<false>", "stream_kernelILb0E"),
+    "B5 intersect_general_culled": ("intersect_general_kernel<true,",
+                                    "intersect_general_kernelILb1E"),
+    "B6 intersect_shared": ("intersect_shared_kernel<12, false,",
+                            "intersect_shared_kernelILi12ELb0E"),
+    "B7s intersect_stream": ("intersect_shared_kernel<16, false,",
+                             "intersect_shared_kernelILi16ELb0E"),
     "B7g intersect_stream_general": ("stream_general_kernel<false>", "stream_general_kernelILb0E"),
 }
 

@@ -3,12 +3,13 @@ plain PyTorch version.
 
 Counterpart of fireflies_tpu/render/pallas/intersect_culled.py
 (`intersect_pallas_general_culled`, B5); the kernel is
-`csrc/intersect_general_culled.cu`.  Bounce rays have spatially local
-origins per 2048-ray tile, so each tile walks only the clusters of its
-`tile_cluster_lists_general` list, front to back from the tile's origins,
-with the rational Möller-Trumbore test of the general kernel.  The
-dispatcher uses it for mid-sized scenes (64-face clusters); it emits no
-hit attributes.
+`csrc/intersect_general_culled.cu`, on B3's body
+(`csrc/intersect_general.cuh`) with lists.  Bounce rays have spatially
+local origins per 2048-ray tile, so each tile walks only the clusters of
+its `tile_cluster_lists_general` list, front to back from the tile's
+origins, with the rational Möller-Trumbore test of the general kernel,
+fused steps and all (`mt_hits_plain`).  The dispatcher uses it for
+mid-sized scenes (64-face clusters); it emits no hit attributes.
 
 Layouts as in `intersect_kernel`, plus lists (B, T, NC) int32 and counts
 (B, T, 1) int32.
@@ -63,8 +64,9 @@ def intersect_general_culled_packed(rays_soa: Tensor, tmax_tiles: Tensor, tri: T
                                     tested: Tensor | None = None):
     """General-origin tile-culled closest/any-hit over packed inputs:
     builds the tile lists unless given, then CPU tensors take the plain
-    version and CUDA tensors launch `csrc/intersect_general_culled.cu` (one
-    thread per ray, grid (R/256, B)) or raise.  `tested` (see
+    version and CUDA tensors launch `csrc/intersect_general_culled.cu`
+    (256-ray blocks, each on its 2048-ray tile's list, grid (R/256, B)) or
+    raise.  `tested` (see
     `_build.tested_ptr`) receives the kernel's per-ray count of tested
     clusters."""
     if lists is None or counts is None:

@@ -209,28 +209,21 @@ def live_ray_blocks(tmax: Tensor):
 
 
 def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: float,
-                  listed: Tensor | None = None, chunk: int = CHUNK, fused: bool = False):
+                  listed: Tensor | None = None, chunk: int = CHUNK):
     """The rational Möller-Trumbore test of the general kernels as a
     blocked broadcast over (rays, faces), closest hit by argmin.  With
     `listed` ((B, T, NC) bool, see `intersect_culled.listed_mask`) a ray
     tests only the clusters of `chunk` faces on its 2048-ray tile's list.
-    `fused` rounds as B3's kernel (`csrc/intersect_general.cu`): the
+    Rounds as B3's and B5's kernels (`csrc/intersect_general.cuh`): the
     components of P = d x e2 as fma(a, b, -(c d)) and the dots det, u and v
     as fma(z, z', fma(y, y', x x')) (`fma32`), every other operation on its
-    own; unfused, every operation rounds on its own, as B5's kernel.
-    Returns (t, prim), each (B, R); prim = -1 on a miss."""
-    if fused:
-        def cross(ay, az, by, bz):  # ay bz - az by, one rounding of the difference
-            return fma32(ay, bz, -(az * by))
+    own.  Returns (t, prim), each (B, R); prim = -1 on a miss."""
+    def cross(ay, az, by, bz):  # ay bz - az by, one rounding of the difference
+        return fma32(ay, bz, -(az * by))
 
-        def dot(ax, ay, az, bx, by, bz):
-            return fma32(az, bz, fma32(ay, by, ax * bx))
-    else:
-        def cross(ay, az, by, bz):
-            return ay * bz - az * by
+    def dot(ax, ay, az, bx, by, bz):
+        return fma32(az, bz, fma32(ay, by, ax * bx))
 
-        def dot(ax, ay, az, bx, by, bz):
-            return ax * bx + ay * by + az * bz
     b = rays_soa.shape[0]
     r = tmax_tiles[0].numel()
     rays = rays_soa.reshape(b, 6, r)
@@ -312,9 +305,9 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
     kernel (`csrc/intersect_stream.cuh`): o'_k, d'_k, u_n and v_n as chains
     of fused multiply-adds (`fma32`) in the kernel's order, every other
     operation on its own.  The shared-origin branch rounds d'_k, u_n and
-    v_n so too with `fused` (B1, `csrc/intersect_shared.cuh`), else every
-    operation on its own (B2, B6 and B7s).  Returns (t, prim), each
-    (B, R); prim = -1 on a miss."""
+    v_n so too with `fused` (B1, B2 and B7s, `csrc/intersect_shared.cuh`
+    with kFused), else every operation on its own (B6).  Returns (t, prim),
+    each (B, R); prim = -1 on a miss."""
     b, n_comp = rays_soa.shape[:2]
     general = n_comp == 6
     r = tmax_tiles[0].numel()
@@ -376,11 +369,11 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
 def intersect_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, boxes: Tensor,
                            t_min: float, any_hit: bool = False, chunk: int = CHUNK):
     """Plain PyTorch version of the general-origin kernel (`mt_hits_plain`
-    over every face, rounded as the kernel's fused steps).  Any-hit returns
+    over every face).  Any-hit returns
     the closest hit too (its `prim >= 0` mask is what any-hit means).
     Returns (t, prim) shaped like `tmax_tiles`; prim = -1 on a miss."""
     del any_hit, boxes, chunk  # the AABB skip is an optimisation, not semantics
-    t, prim = mt_hits_plain(rays_soa, tmax_tiles, tri, t_min, fused=True)
+    t, prim = mt_hits_plain(rays_soa, tmax_tiles, tri, t_min)
     return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
 
 

@@ -10,13 +10,16 @@ front-to-back cluster list (`intersect_culled.tile_cluster_lists` for a
 shared origin, `tile_cluster_lists_general` for per-ray origins); without
 (`intersect_pallas_streamed`, B7s, and `intersect_pallas_streamed_general`,
 B7g; `csrc/intersect_stream.cu` and `csrc/intersect_stream_general.cu`)
-every tile walks all clusters in index order.  Each block copies the next
-cluster's 128 faces into shared memory while it tests the current one.
+every tile walks all clusters in index order.  The shared-origin kernels
+(B2, B7s) run on B1's body (`csrc/intersect_shared.cuh`: two 128-face
+clusters staged a batch, a slab vote per warp, fused steps); the general
+ones (B4, B7g) on `csrc/intersect_stream.cuh` (one cluster staged at a
+time, each ray tested against the clusters its own slab test opens).
 With `emit_attrs` the culled kernels also return the winning face's
 unnormalized plane normal (Woop row W2 = n / |n|^2) and material id (woop
-row 12), so the path tracer needs no attribute gather; a miss gets
-(0, 0, 1) and material 0.  The unculled kernels emit no attributes, as in
-the reference.
+row 12), read after the walk, so the path tracer needs no attribute
+gather; a miss gets (0, 0, 1) and material 0.  The unculled kernels emit
+no attributes, as in the reference.
 
 Layouts, with a leading variant axis B:
   dirs   (B, 3, R/128, 128) f32 (shared origin) or rays (B, 6, R/128, 128)
@@ -100,14 +103,15 @@ def pack_woop_streamed(vertices: Tensor, faces: Tensor, origin: Tensor | None,
 def stream_culled_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop16: Tensor,
                                boxes: Tensor, lists: Tensor, counts: Tensor, t_min: float,
                                any_hit: bool = False, emit_attrs: bool = False):
-    """Plain PyTorch version of both streamed kernels: `woop_hits_plain`
-    over the tile lists (shared origin for (B, 3, ...) directions, general
-    for (B, 6, ...) rays), then the winner's W2 row and material id.
+    """Plain PyTorch version of both culled streamed kernels:
+    `woop_hits_plain` over the tile lists with the kernels' fused steps
+    (shared origin for (B, 3, ...) directions, general for (B, 6, ...)
+    rays), then the winner's W2 row and material id.
     Any-hit returns the closest hit too.  Returns (t, prim[, nx, ny, nz,
     mat]) shaped like `tmax_tiles`."""
     del any_hit, boxes  # the AABB skip is an optimisation, not semantics
     t, prim = woop_hits_plain(rays_soa, tmax_tiles, woop16, listed_mask(lists, counts), t_min,
-                              STREAM_CHUNK)
+                              STREAM_CHUNK, fused=True)
     outs = [t, prim]
     if emit_attrs:
         idx = prim.clamp(min=0).long()
@@ -122,11 +126,13 @@ def stream_culled_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop16: Ten
 def stream_packed_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop16: Tensor, boxes: Tensor,
                         t_min: float, any_hit: bool = False):
     """Plain PyTorch version of both unculled streamed kernels:
-    `woop_hits_plain` over every face (shared origin for (B, 3, ...)
-    directions, general for (B, 6, ...) rays).  Any-hit returns the closest
+    `woop_hits_plain` over every face with the kernels' fused steps
+    (shared origin for (B, 3, ...) directions, general for (B, 6, ...)
+    rays).  Any-hit returns the closest
     hit too.  Returns (t, prim) shaped like `tmax_tiles`."""
     del any_hit, boxes  # the AABB skip is an optimisation, not semantics
-    t, prim = woop_hits_plain(rays_soa, tmax_tiles, woop16, None, t_min, STREAM_CHUNK)
+    t, prim = woop_hits_plain(rays_soa, tmax_tiles, woop16, None, t_min, STREAM_CHUNK,
+                              fused=True)
     return t.reshape(tmax_tiles.shape), prim.reshape(tmax_tiles.shape)
 
 
@@ -185,8 +191,8 @@ def intersect_stream_culled_packed(rays_soa: Tensor, tmax_tiles: Tensor, woop16:
     """Shared-origin streamed closest/any-hit (B2) over packed inputs
     (`rays_soa` holds the (B, 3, R/128, 128) directions): builds the tile
     lists unless given, then CPU tensors take the plain version and CUDA
-    tensors launch `csrc/intersect_stream_culled.cu` (one thread per ray,
-    grid (R/256, B)) or raise.  Returns (t, prim[, nx, ny, nz, mat]) shaped
+    tensors launch `csrc/intersect_stream_culled.cu` (256-ray blocks, each
+    on its 2048-ray tile's list, grid (R/256, B)) or raise.  Returns (t, prim[, nx, ny, nz, mat]) shaped
     like `tmax_tiles`.  `tested` (see `_build.tested_ptr`) receives the
     kernel's per-ray count of tested clusters."""
     if lists is None or counts is None:
@@ -226,7 +232,7 @@ def intersect_stream_packed(rays_soa: Tensor, tmax_tiles: Tensor, woop16: Tensor
     """Shared-origin streamed closest/any-hit over every cluster (B7s) on
     packed inputs (`rays_soa` holds the (B, 3, R/128, 128) directions): CPU
     tensors take the plain version, CUDA tensors launch
-    `csrc/intersect_stream.cu` (one thread per ray, grid (R/256, B)) or
+    `csrc/intersect_stream.cu` (256-ray blocks, grid (R/256, B)) or
     raise.  Returns (t, prim) shaped like `tmax_tiles`.  `tested` (see
     `_build.tested_ptr`) receives the kernel's per-ray count of tested
     clusters."""

@@ -112,7 +112,7 @@ def _mt_numpy(o, d, tmax, tri, t_min, fused=True):
 
 
 def test_mt_plain_rounds_fused_steps():
-    """B3's plain version (`mt_hits_plain` with fused=True) against the
+    """B3's and B5's plain version (`mt_hits_plain`) against the
     numpy reference over every face: t bit for bit and prims equal on soup
     rays half of which start on a face.  The fused steps matter: every
     operation rounded alone moves t on some rays."""
@@ -123,7 +123,7 @@ def test_mt_plain_rounds_fused_steps():
     o[0, N_RAYS // 2:] = np.einsum("nk,nkc->nc", bary, v).astype(np.float32)
     tri, _ = tc_kernel.pack_triangles(_t(verts), _t(faces, torch.long))
     rays, tm, _ = tc_kernel.pack_rays(_t(o), _t(d), _t(tmax))
-    t, prim = tc_kernel.mt_hits_plain(rays, tm, tri, 1e-4, fused=True)
+    t, prim = tc_kernel.mt_hits_plain(rays, tm, tri, 1e-4)
     live = tmax[0] >= 0
     tri0 = tri[0].numpy()
     t_np, p_np = _mt_numpy(o[0], d[0], tmax[0], tri0, 1e-4)

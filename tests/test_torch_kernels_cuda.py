@@ -14,7 +14,10 @@ B6 and B7g in the tests that say so: equal, since the plain versions round
 their steps, fused or not, alike), emitted
 normal and material equal where the prims agree.  The per-ray counts of
 tested clusters (`tested`) are exact integers: 0 on dead rays, never more
-than the ray's tile lists.
+than the ray's tile lists.  What they count follows each kernel's body:
+the clusters a ray's warp tested for B1, B2, B6 and B7s
+(`csrc/intersect_shared.cuh`, a slab vote per warp), the clusters its own
+slab test opened for B3, B5 (`csrc/intersect_general.cuh`), B4 and B7g.
 """
 
 import numpy as np
@@ -237,8 +240,9 @@ def _occluder_scene(dev, n_variants=2, n_rays=4096):
     """A large quad (faces 0-1) in z = 0 with 126 small faces beside it fill
     the first 128-face cluster; 384 small faces lie far behind it.  Rays
     from around (0, 0, 4) toward the quad are all blocked by the first
-    listed cluster, so the streamed kernels' any-hit loop leaves while the
-    next cluster's copy is in flight."""
+    listed cluster, so the streamed kernels' any-hit loop leaves after the
+    next batch's copy has started (B4 and B7g stage one cluster a batch,
+    B2 and B7s two)."""
     rng = np.random.default_rng(7)
     quad = np.array([[-20, -20, 0], [20, -20, 0], [20, 20, 0], [-20, 20, 0]], np.float32)
     small = rng.uniform(-0.05, 0.05, size=(510, 3, 3)).astype(np.float32)
@@ -260,6 +264,12 @@ def _occluder_scene(dev, n_variants=2, n_rays=4096):
 
 @pytest.mark.parametrize("general", [False, True])
 def test_stream_any_hit_exits_with_copy_in_flight(dev, general):
+    """B2 (warp votes) and B4 (per-ray tests) on the occluder scene in
+    any-hit mode: every ray is blocked by the first listed cluster, and
+    every live ray reports one tested cluster (for B2, its warp tested no
+    other; for B4, it opened no other); the lists hold a second batch, whose
+    copy is started before the block leaves, and the next launch on the
+    same stream sees no stale copy."""
     verts, faces, o, d, tmax = _occluder_scene(dev)
     if general:
         woop16, boxes = ist.pack_woop_streamed(verts, faces, None)
@@ -272,13 +282,13 @@ def test_stream_any_hit_exits_with_copy_in_flight(dev, general):
         rays, tm, _ = ik.pack_dirs(d, tmax)
         lists, counts = ic.tile_cluster_lists(rays, boxes, t_min=1e-4, tmax_tiles=tm)
         fn = ist.intersect_stream_culled_packed
-    assert int(counts.min()) >= 2 and bool((lists[..., 0] == 0).all())
+    assert int(counts.min()) >= 3 and bool((lists[..., 0] == 0).all())
     tested = torch.empty_like(tm, dtype=torch.int32)
     out = fn(rays, tm, woop16, boxes, 1e-4, True, lists=lists, counts=counts, tested=tested)
     plain = ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4, True)
     _check(out, plain, True)
     assert bool((out[1] >= 0).all())  # every ray blocked, by the first cluster
-    assert bool((tested == 1).all())  # and no block tested a second one
+    assert bool((tested == 1).all())  # and no warp (B2) or ray (B4) tested a second one
     # The next launch on the same stream sees no stale copy.
     again = fn(rays, tm, woop16, boxes, 1e-4, False, lists=lists, counts=counts)
     _check(again, ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4),
@@ -288,8 +298,10 @@ def test_stream_any_hit_exits_with_copy_in_flight(dev, general):
 @pytest.mark.parametrize("general", [False, True])
 def test_unculled_stream_any_hit_exits_with_copy_in_flight(dev, general):
     """B7s and B7g walk the clusters in index order, so the quad's cluster
-    (0) comes first and blocks every ray while cluster 1's copy is in
-    flight."""
+    (0) comes first and blocks every ray; the block leaves after the copy of
+    the next batch (B7s: clusters 2-3, B7g: cluster 1) has started.  Every
+    live ray reports one tested cluster: B7s's warps, B7g's rays test no
+    other."""
     verts, faces, o, d, tmax = _occluder_scene(dev)
     if general:
         woop16, boxes = ist.pack_woop_streamed(verts, faces, None)
@@ -428,16 +440,11 @@ def test_general_stream_kernels_round_as_plain(dev, kernel, any_hit):
         assert torch.equal(out[0][same], plain[0][same])
 
 
-def test_general_culled_kernel_reads_winner_attributes(dev):
-    """B4 reads its winner's W2 row and material id after the walk: equal
-    to the plain gather at the kernel's own prim on every hit, (0, 0, 1)
+def _assert_winner_attributes(out, woop16):
+    """The emitted normal and material of a streamed culled kernel: the
+    gather from `woop16` at the kernel's own prim on every hit, (0, 0, 1)
     and 0 on every miss."""
-    verts, faces, o, d, tmax = _bounce_inputs(dev, seed=13)
-    face_mat = torch.arange(faces.shape[0], device=dev) % 7
-    woop16, boxes = ist.pack_woop_streamed(verts, faces, None, face_mat)
-    rays, tm, _ = ik.pack_rays(o, d, tmax)
-    t, prim, nx, ny, nz, mat = ist.intersect_stream_general_culled_packed(
-        rays, tm, woop16, boxes, 1e-4, emit_attrs=True)
+    t, prim, nx, ny, nz, mat = out
     torch.cuda.synchronize()
     b = prim.shape[0]
     hit, idx = prim >= 0, prim.clamp(min=0).reshape(b, -1).long()
@@ -447,6 +454,36 @@ def test_general_culled_kernel_reads_winner_attributes(dev):
         assert torch.equal(got[hit], want[hit]) and bool((got[~hit] == miss).all())
     want = torch.gather(woop16[:, ist.MAT_ROW], 1, idx).reshape(prim.shape).to(torch.int32)
     assert torch.equal(mat[hit], want[hit]) and bool((mat[~hit] == 0).all())
+
+
+def test_general_culled_kernel_reads_winner_attributes(dev):
+    """B4 reads its winner's W2 row and material id after the walk: equal
+    to the plain gather at the kernel's own prim on every hit, (0, 0, 1)
+    and 0 on every miss."""
+    verts, faces, o, d, tmax = _bounce_inputs(dev, seed=13)
+    face_mat = torch.arange(faces.shape[0], device=dev) % 7
+    woop16, boxes = ist.pack_woop_streamed(verts, faces, None, face_mat)
+    rays, tm, _ = ik.pack_rays(o, d, tmax)
+    _assert_winner_attributes(ist.intersect_stream_general_culled_packed(
+        rays, tm, woop16, boxes, 1e-4, emit_attrs=True), woop16)
+
+
+def test_stream_culled_kernel_reads_winner_attributes(dev):
+    """B2 reads its winner's W2 row and material id after the walk (not
+    carried through it): equal to the plain version's wherever the prims
+    agree, to the gather at the kernel's own prim on every hit, and
+    (0, 0, 1) and 0 on every miss."""
+    verts, faces, _, d, tmax = _inputs(dev, seed=15)
+    origin = torch.tensor([[0.0, 0.5, 4.0]] * 3, device=dev)
+    face_mat = torch.arange(faces.shape[0], device=dev) % 7
+    woop16, boxes = ist.pack_woop_streamed(verts, faces, origin, face_mat)
+    dirs, tm, _ = ik.pack_dirs(d, tmax)
+    lists, counts = ic.tile_cluster_lists(dirs, boxes, t_min=1e-4, tmax_tiles=tm)
+    out = ist.intersect_stream_culled_packed(dirs, tm, woop16, boxes, 1e-4, emit_attrs=True,
+                                             lists=lists, counts=counts)
+    _check(out, ist.stream_culled_packed_plain(dirs, tm, woop16, boxes, lists, counts, 1e-4,
+                                               emit_attrs=True), False)
+    _assert_winner_attributes(out, woop16)
 
 
 @pytest.mark.parametrize("kernel", ["B4", "B7g"])
@@ -487,33 +524,49 @@ def test_general_stream_tests_only_own_clusters(dev, kernel):
     assert bool((tested[256:] == 0).all())  # padding: dead
 
 
-# B1, B3 and B6 on one wrapper signature: (packed rays, tmax, table, boxes,
-# t_min, any_hit, lists/counts or order keyword arguments).
-_RESIDENT = ("B1", "B3", "B6")
+# B1, B2, B3, B5, B6 and B7s on one wrapper signature: (packed rays, tmax,
+# table, boxes, t_min, any_hit, lists/counts or order keyword arguments).
+# B3 and B5 take per-ray origins and test each ray against the clusters its
+# own slab test opens; the others vote per warp over a shared origin.
+_RESIDENT = ("B1", "B2", "B3", "B5", "B6", "B7s")
+_GENERAL = ("B3", "B5")
+_CHUNK = {"B1": ic.CHUNK, "B2": ist.STREAM_CHUNK, "B3": ik.CHUNK, "B5": igc.CHUNK,
+          "B6": ik.CHUNK, "B7s": ist.STREAM_CHUNK}
 
 
 def _resident_case(dev, kernel, verts, faces, o, d, tmax):
-    """(wrapper, args, kwargs, plain version) of B1, B3 or B6 on the given
-    rays, with B1's tile lists prebuilt and shared-origin rays starting at
+    """(wrapper, args, kwargs, plain version) of one of `_RESIDENT` on the
+    given rays, with tile lists prebuilt and shared-origin rays starting at
     each variant's o[:, 0]."""
-    if kernel == "B3":
-        tri, boxes = ik.pack_triangles(verts, faces)
+    if kernel in _GENERAL:
+        tri, boxes = ik.pack_triangles(verts, faces, chunk=_CHUNK[kernel])
         rays, tm, _ = ik.pack_rays(o, d, tmax)
-        return ik.intersect_packed, (rays, tm, tri, boxes, 1e-4), {}, ik.intersect_packed_plain
+        if kernel == "B3":
+            return ik.intersect_packed, (rays, tm, tri, boxes, 1e-4), {}, ik.intersect_packed_plain
+        lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+        return (igc.intersect_general_culled_packed, (rays, tm, tri, boxes, 1e-4),
+                dict(lists=lists, counts=counts),
+                lambda *a, any_hit=False: igc.intersect_general_culled_packed_plain(
+                    *a, lists, counts, 1e-4, any_hit))
     origin = o[:, 0].contiguous()
-    chunk = ic.CHUNK if kernel == "B1" else ik.CHUNK
-    woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=chunk)
     dirs, tm, _ = ik.pack_dirs(d, tmax)
+    if kernel in ("B2", "B7s"):
+        woop, boxes = ist.pack_woop_streamed(verts, faces, origin)
+    else:
+        woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=_CHUNK[kernel])
     if kernel == "B6":
         order = ik.cluster_order(boxes)
         return (ik.intersect_shared_packed, (dirs, tm, woop, boxes, 1e-4), dict(order=order),
                 lambda *a, any_hit=False: ik.intersect_shared_packed_plain(
                     *a, order, 1e-4, any_hit))
+    if kernel == "B7s":
+        return (ist.intersect_stream_packed, (dirs, tm, woop, boxes, 1e-4), {},
+                lambda *a, any_hit=False: ist.stream_packed_plain(*a, 1e-4, any_hit))
     lists, counts = ic.tile_cluster_lists(dirs, boxes, t_min=1e-4, tmax_tiles=tm)
-    return (ic.intersect_culled_packed, (dirs, tm, woop, boxes, 1e-4),
-            dict(lists=lists, counts=counts),
-            lambda *a, any_hit=False: ic.intersect_culled_packed_plain(
-                *a, lists, counts, 1e-4, any_hit))
+    fn, plain = ((ic.intersect_culled_packed, ic.intersect_culled_packed_plain) if kernel == "B1"
+                 else (ist.intersect_stream_culled_packed, ist.stream_culled_packed_plain))
+    return (fn, (dirs, tm, woop, boxes, 1e-4), dict(lists=lists, counts=counts),
+            lambda *a, any_hit=False: plain(*a, lists, counts, 1e-4, any_hit))
 
 
 def _plain(kernel, plain, args, any_hit):
@@ -534,11 +587,12 @@ def _equal_where_prims_agree(out, plain):
 def test_resident_one_ray_opens_a_cluster(dev, kernel):
     """Two clusters seen from the origin, one down -z and one along +x;
     every ray of the first 256-ray block looks down -z but ray 5, which
-    looks along +x.  B1 and B6 vote per warp: ray 5 opens the +x cluster for
-    its warp (rays 0-31 test both clusters, the other warps one).  B3 tests
-    a ray only against the clusters its own slab test opens: every live ray
-    tests one.  Outputs equal the plain version's, t bit for bit."""
-    chunk = ic.CHUNK if kernel == "B1" else ik.CHUNK
+    looks along +x.  B1, B2, B6 and B7s vote per warp: ray 5 opens the +x
+    cluster for its warp (rays 0-31 test both clusters, the other warps
+    one).  B3 and B5 test a ray only against the clusters its own slab test
+    opens: every live ray tests one.  Outputs equal the plain version's, t
+    bit for bit."""
+    chunk = _CHUNK[kernel]
     rng = np.random.default_rng(11)
     centres = np.concatenate([rng.uniform(-0.5, 0.5, (chunk, 3)) * [1, 1, 0.1] + [0, 0, -5],
                               rng.uniform(-0.5, 0.5, (chunk, 3)) * [0.1, 1, 1] + [5, 0, 0]])
@@ -557,7 +611,7 @@ def test_resident_one_ray_opens_a_cluster(dev, kernel):
     _check(out, expect, False)
     assert torch.equal(out[0], expect[0]) and torch.equal(out[1], expect[1])
     tested = tested.reshape(-1)
-    if kernel == "B3":
+    if kernel in _GENERAL:
         assert bool((tested[:256] == 1).all())
     else:
         assert bool((tested[:32] == 2).all()) and bool((tested[32:256] == 1).all())
@@ -565,21 +619,24 @@ def test_resident_one_ray_opens_a_cluster(dev, kernel):
 
 
 @pytest.mark.parametrize("kernel,n_faces", [("B1", 5288), ("B1", 8192), ("B3", 8192),
-                                            ("B6", 8192)])
+                                            ("B6", 8192), ("B2", 11538), ("B7s", 11538),
+                                            ("B5", 5288)])
 def test_resident_walks_lists_longer_than_a_batch(dev, kernel, n_faces):
-    """A soup of 5288 or 8192 faces, the most each route sends B1, B3 and B6:
-    their walks (331 or 512 clusters of 16 faces, or 128 of 64) span many
-    staged batches of 256 faces.  Closest hit against the plain version,
-    t bit for bit where the prims agree; any-hit masks exact; the tested
-    counts within the listed clusters."""
+    """A soup of as many faces as the paths send each kernel: 5288 or 8192
+    for B1, 8192 for B3 and B6, the reference shape's 11538 for B2 and B7s
+    and mid's 5288 for B5.  Their walks (331 or 512 clusters of 16 faces,
+    128 or 83 of 64, 91 of 128) span many staged batches of 256 faces.
+    Closest hit against the plain version, t bit for bit where the prims
+    agree; any-hit masks exact; the tested counts within the listed
+    clusters."""
     verts, faces, o, d, tmax = _inputs(dev, seed=14, n_rays=4096, n_faces=n_faces,
                                        n_variants=2)
-    if kernel != "B3":
+    if kernel not in _GENERAL:
         o = torch.tensor([[0.0, 0.5, 4.0]], device=dev).expand_as(o).contiguous()
     fn, args, kw, plain = _resident_case(dev, kernel, verts, faces, o, d, tmax)
     nc = args[3].shape[2]
-    listed = kw["counts"].max() if kernel == "B1" else nc
-    assert int(listed) > 256 // (ic.CHUNK if kernel == "B1" else ik.CHUNK)
+    listed = kw["counts"].max() if "counts" in kw else nc
+    assert int(listed) > 256 // _CHUNK[kernel]
     for any_hit in (False, True):
         tested = torch.empty_like(args[1], dtype=torch.int32)
         out = fn(*args, any_hit=any_hit, tested=tested, **kw)
@@ -595,13 +652,13 @@ def test_resident_any_hit_exits_with_next_batch_started(dev, kernel):
     """A large quad (faces 0-1, with degenerate faces filling its cluster)
     in front of 1022 small faces far behind it: every ray from around
     (0, 0, 4) is blocked by cluster 0, first on every walk.  In any-hit mode
-    B1's and B6's warps stop testing after it (every live ray reports one
-    tested cluster), and B3's rays stop opening clusters after the first
-    batch (a batch's slab tests precede its tests, so a ray reports at most
-    that batch's clusters); each block leaves the walk with the next
-    batch's copy started, and the next launch on the stream sees no stale
-    copy."""
-    chunk = ic.CHUNK if kernel == "B1" else ik.CHUNK
+    the warps of B1, B2, B6 and B7s stop testing after it (every live ray
+    reports one tested cluster), and the rays of B3 and B5 stop opening
+    clusters after the first batch (a batch's slab tests precede its tests,
+    so a ray reports at most that batch's clusters); each block leaves the
+    walk with the next batch's copy started, and the next launch on the
+    stream sees no stale copy."""
+    chunk = _CHUNK[kernel]
     rng = np.random.default_rng(7)
     quad = np.array([[-20, -20, 0], [20, -20, 0], [20, 20, 0], [-20, 20, 0]], np.float32)
     corner = np.repeat(quad[:1][None], chunk - 2, axis=0).repeat(3, axis=1)  # zero-area faces
@@ -614,7 +671,7 @@ def test_resident_any_hit_exits_with_next_batch_started(dev, kernel):
     d = np.concatenate([u, -np.ones((2, 4096, 1))], -1).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     o = np.broadcast_to(np.float32([0.0, 0.0, 4.0]), d.shape).copy()
-    if kernel == "B3":
+    if kernel in _GENERAL:
         o[..., :2] += rng.uniform(-0.2, 0.2, size=(2, 4096, 2)).astype(np.float32)
     o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
     fn, args, kw, plain = _resident_case(dev, kernel, verts, faces, o, d,
@@ -624,7 +681,7 @@ def test_resident_any_hit_exits_with_next_batch_started(dev, kernel):
     out = fn(*args, any_hit=True, tested=tested, **kw)
     _check(out, _plain(kernel, plain, args, True), True)
     assert bool((out[1] >= 0).all())  # every ray blocked
-    if kernel == "B3":
+    if kernel in _GENERAL:
         assert bool((tested >= 1).all()) and int(tested.max()) <= 256 // chunk
     else:
         assert bool((tested == 1).all())  # by the first cluster, and tested no other
