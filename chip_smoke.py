@@ -53,13 +53,18 @@ Phases (each raises on failure, so any failure exits non-zero):
      set to 0 just before and read just after) on 16 variants' camera rays
      at 512x512 from the main and reference shapes, with t_max = 1e30 and
      with a per-ray t_max that cuts about half the hits; each launch
-     replayed through the kernel and its plain version (2 variants),
-     closest and as any-hit, which must agree exactly; X1's prims against
-     B6's on the same rays; times and bound.
+     replayed through the kernel and its plain version (2 variants), t and
+     prim bit for bit (its split-TF32 d' only filters the pairs it then
+     tests as the plain version does), and as any-hit, which must give the
+     closest-hit outputs; X1's prims
+     against B6's on the same rays; times and bounds.
 Then one JSON line with the kernels (each with its fused operations per
 tested pair, `ops_per_pair`, and for the nine intersection kernels
-`least_pairs` and `least_bound_ms`; for X2 its unfused operations per
-element and round; the script fails if a kernel ran faster than its bound),
+`least_pairs` and `least_bound_ms`; for X1 beside them its tensor-core
+multiply-adds and reciprocals per pair and the bounds with d' on the FP32
+pipe; for X2 its
+unfused operations per element and round; the script fails if a kernel ran
+faster than its bound),
 the nvidia-smi line, and the result line `{"ok": true, "device": {...}}`
 last.
 """
@@ -123,8 +128,8 @@ def bound(name: str, rec: dict, n_out: int, tested) -> dict:
     rate of FP32 operations with a fused multiply-add as one
     (`perf_probe.PEAK_*`).  The operations are the pairs the kernel tested
     on this launch's data (`tested`: per live ray, the clusters its faces
-    were tested against after the slab test, its warp's vote in B1, B2, B6
-    and B7s, its own in B3, B4, B5 and B7g) x the faces of a cluster x
+    were tested against after the slab test, its warp's vote in B1, B2, B6,
+    B7s and X1, its own in B3, B4, B5 and B7g) x the faces of a cluster x
     `perf_probe.OPS_PER_PAIR`, the fused count of its pair test; the
     per-cluster slab tests are left out.
     Also the pairs on the tile lists (every cluster without lists), which
@@ -419,51 +424,37 @@ def probe_phase(dev) -> dict:
 
 def mxu_phase(dev) -> dict:
     """X1 through its entry point on the camera rays of the main and
-    reference shapes (16 variants, 512x512, jittered as the paths cast
-    them, the origin the camera): once with t_max = 1e30, once with a per-ray
-    t_max of each variant's median hit distance times 0.9-1.1, with X1's
-    counter set to 0 just before and read just after.  The per-ray result
-    must be the first one cut after the scan.  Each launch is replayed
-    through the kernel and its plain version (first 2 variants), closest and
-    as any-hit, and the two must agree exactly (both round every operation
-    alike).  X1's prims are held against B6's (`intersect_shared_packed`,
-    64-face clusters front to back) on the same rays: at most 1e-3 of the
-    live rays may differ, since the two tests round edges differently.
-    Times of X1, its plain version (on the t_max = 1e30 launches) and B6,
-    and X1's bound.  Returns X1's entry of the kernels line."""
+    reference shapes (`perf_probe.mxu_scenes`: 16 variants, 512x512,
+    jittered as the paths cast them, the origin the camera): once with
+    t_max = 1e30, once with a per-ray t_max of each variant's median hit
+    distance times 0.9-1.1 (`perf_probe.mxu_drive`), with X1's counter set to
+    0 just before and read just after.  The per-ray result must be the
+    first one cut after the scan.  Each launch is replayed through the
+    kernel and its plain version (first 2 variants): the kernel's tensor
+    cores only filter the pairs and it tests those that pass as the plain
+    version does, so t and prim must equal the plain version's bit for bit
+    (0 rays differ, max |dt| 0).  Replayed as any-hit (the same walk) the
+    kernel must give the closest-hit replay's outputs.  X1's prims are held
+    against B6's (`intersect_shared_packed`, 64-face clusters front to
+    back) on the same rays: at most 1e-3 of the live rays may differ, since
+    the two tests round edges differently.  Times of X1, its plain version
+    (on the t_max = 1e30 launches) and B6, and X1's bounds
+    (`perf_probe.mxu_bounds`: tested and least pairs, the FP32 pipe, the
+    special-function units and the tensor cores, and with d' on the FP32
+    pipe).  Returns X1's entry of the kernels line."""
     import torch  # noqa: PLC0415
 
-    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+    from fireflies_tpu_torch import perf_probe  # noqa: PLC0415
     from fireflies_tpu_torch.experiments import intersect_mxu as mx  # noqa: PLC0415
     from fireflies_tpu_torch.perf_probe import OPS_PER_PAIR, cuda_ms  # noqa: PLC0415
     from fireflies_tpu_torch.render.cuda import intersect_kernel as ik  # noqa: PLC0415
-    from fireflies_tpu_torch.render.rays import camera_rays_tiled  # noqa: PLC0415
 
-    seeds = list(range(BATCH))
-    scenes = []
-    for tag in ("main", "reference"):
-        bridge, randomize, beams = main_path.build(dev, resolution=main_path.SHAPES[tag][0])
-        rs = main_path.scene_batch(bridge, randomize, beams, main_path.generators(seeds, dev))
-        _, d, _ = camera_rays_tiled(rs.camera, SIZE, SIZE, gens=main_path.generators(seeds, dev))
-        scenes.append((tag, rs.camera.to_world[:, :3, 3].contiguous(), d, rs.geometry.vertices,
-                       rs.geometry.faces))
+    scenes = perf_probe.mxu_scenes(dev, SIZE, BATCH)
     torch.cuda.synchronize()
-
     mx.KERNEL.launches = 0
-    mx.KERNEL.recorded = []
-    with torch.no_grad():
-        outs = []
-        for tag, cam, d, verts, faces in scenes:
-            t, prim = mx.intersect_mxu_shared(cam, d, verts, faces)
-            u = torch.rand(d.shape[:2], device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(3))
-            median = torch.where(prim >= 0, t, torch.nan).nanmedian(dim=1, keepdim=True).values
-            t_max = median * (0.9 + 0.2 * u)
-            outs.append((tag, faces.shape[0], t, prim, t_max,
-                         mx.intersect_mxu_shared(cam, d, verts, faces, t_max=t_max)))
+    outs, recorded = perf_probe.mxu_drive(scenes)
     torch.cuda.synchronize()
     launches = mx.KERNEL.launches
-    recorded, mx.KERNEL.recorded = mx.KERNEL.recorded, None
     if launches <= 0:
         raise AssertionError("mxu: X1 was never launched")
     for tag, n_faces, t, prim, t_max, (t_cut, p_cut) in outs:
@@ -485,16 +476,28 @@ def mxu_phase(dev) -> dict:
             b6 = lambda rec=rec: ik.intersect_shared_packed(  # noqa: E731
                 rec["dirs_soa"], rec["tmax_tiles"], woop64, boxes64, rec["t_min"], order=order)
             t6, p6 = b6()
+            rec = {**rec, "any_hit": False}
+            rec_p = _first(rec, 2)
+            out_k = mx.intersect_mxu_packed(**rec)
+            plain = mx.intersect_mxu_packed_plain(**rec_p)
+            live_p = rec_p["tmax_tiles"] >= 0
+            differ = int(((out_k[1][:2] != plain[1]) & live_p).sum())
+            max_dt = float((out_k[0][:2] - plain[0]).abs().max())
             for any_hit in (False, True):
                 case = f"mxu/{tag}/t_max {cut}/" + ("as-any" if any_hit else "closest")
-                rec = {**rec, "any_hit": any_hit}
-                rec_p = _first(rec, 2)
-                out_k = mx.intersect_mxu_packed(**rec)
-                plain = mx.intersect_mxu_packed_plain(**rec_p)
-                res = compare(case, [x[:2] for x in out_k], plain, any_hit)
-                if not all(torch.equal(k[:2], p) for k, p in zip(out_k, plain)):
-                    raise AssertionError(f"{case}: the kernel and its plain version differ")
-                res["ms"] = cuda_ms(lambda rec=rec: mx.intersect_mxu_packed(**rec), 20)
+                if any_hit:
+                    again = mx.intersect_mxu_packed(**{**rec, "any_hit": True})
+                    if not all(torch.equal(a, b) for a, b in zip(again, out_k)):
+                        raise AssertionError(f"{case}: any-hit differs from the closest-hit walk")
+                res = {"live": int(live_p.sum()), "differ": differ, "max_abs_err": max_dt}
+                log(f"  {case}: {differ} of {res['live']} live rays differ from the plain "
+                    f"version, max |dt| {max_dt:.3g}")
+                if not (torch.equal(out_k[0][:2], plain[0]) and torch.equal(out_k[1][:2], plain[1])):
+                    raise AssertionError(f"{case}: the kernel disagrees with its plain version")
+                if not torch.isfinite(out_k[0]).all():
+                    raise AssertionError(f"{case}: non-finite t")
+                rec_case = {**rec, "any_hit": any_hit}
+                res["ms"] = cuda_ms(lambda rec=rec_case: mx.intersect_mxu_packed(**rec), 20)
                 line = f"  {case}: kernel {res['ms']:.4f} ms ({BATCH} variants)"
                 if cut == "1e30" and not any_hit:
                     res["plain_ms"] = cuda_ms(
@@ -503,21 +506,28 @@ def mxu_phase(dev) -> dict:
                     line += (f", plain {res['plain_ms']:.4f} ms (2 variants), "
                              f"B6 {res['b6_ms']:.4f} ms")
                 tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
-                mx.intersect_mxu_packed(**rec, tested=tested)
-                res.update(bound(MXU, rec, 2, tested))
-                res.update(least_bound(MXU, rec, out_k))
+                mx.intersect_mxu_packed(**rec_case, tested=tested)
+                generic = bound(MXU, rec, 2, tested)
+                res.update(pairs=generic["pairs"], listed_pairs=generic["listed_pairs"])
+                res["least_pairs"] = perf_probe.least_pairs(rec, *out_k)
+                res.update(perf_probe.mxu_bounds(rec, res["pairs"], res["least_pairs"],
+                                                 generic["bytes"], tested))
                 live = rec["tmax_tiles"] >= 0
-                differ = int(((out_k[1] != p6) & live).sum())
+                differ6 = int(((out_k[1] != p6) & live).sum())
                 same = (out_k[1] == p6) & (p6 >= 0)
                 dt = float((out_k[0] - t6).abs()[same].max()) if bool(same.any()) else 0.0
-                res.update(b6_differ=differ, b6_max_dt=dt)
-                log(line + f", bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
-                    f"{res['pairs']:.4g} pairs tested of {res['listed_pairs']:.4g}; bound / kernel "
-                    f"{res['bound_ms'] / res['ms']:.3f}); least {res['least_pairs']:.4g} pairs, "
-                    f"{res['least_bound_ms']:.4f} ms; against B6: {differ} of "
-                    f"{int(live.sum())} live rays differ, max |dt| {dt:.3g}")
-                if differ > 1e-3 * int(live.sum()):
-                    raise AssertionError(f"{case}: {differ} rays differ from B6")
+                res.update(b6_differ=differ6, b6_max_dt=dt)
+                log(line + f", bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+                    f"{res['bound_pipe']}: FP32 {res['fp32_ms']:.4f}, SFU {res['sfu_ms']:.4f}, "
+                    f"tensor {res['tensor_ms']:.4f} ms; {res['pairs']:.4g} pairs tested of "
+                    f"{res['listed_pairs']:.4g}; bound / kernel {res['bound_ms'] / res['ms']:.3f}); "
+                    f"least {res['least_pairs']:.4g} pairs, {res['least_bound_ms']:.4f} ms (least / "
+                    f"kernel {res['least_bound_ms'] / res['ms']:.3f}); with d' on the FP32 pipe "
+                    f"bound {res['bound_ms_fp32_dp']:.4f}, least {res['least_bound_ms_fp32_dp']:.4f}"
+                    f" ms ({res['least_bound_ms_fp32_dp'] / res['ms']:.3f}); against B6: {differ6} "
+                    f"of {int(live.sum())} live rays differ, max |dt| {dt:.3g}")
+                if differ6 > 1e-3 * int(live.sum()):
+                    raise AssertionError(f"{case}: {differ6} rays differ from B6")
                 results[case] = res
 
     main, ref = results["mxu/main/t_max 1e30/closest"], results["mxu/reference/t_max 1e30/closest"]
@@ -525,15 +535,26 @@ def mxu_phase(dev) -> dict:
     return {"name": MXU, "route": "cuda", "source": "fireflies_tpu_torch/csrc/intersect_mxu.cu",
             "replaces": "experiments/intersect_mxu.py:253", "path": "mxu", "launches": launches,
             "ops_per_pair": OPS_PER_PAIR[MXU],
+            "ops_per_pair_fp32_dp": perf_probe.MXU_OPS_PER_PAIR_FP32,
+            "macs_per_pair": perf_probe.MXU_MACS_PER_PAIR,
+            "sfu_per_pair": perf_probe.MXU_SFU_PER_PAIR,
             "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+            "differ": sum(r["differ"] for r in results.values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "plain_variants": 2,
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bound_pipe": main["bound_pipe"], "fp32_ms": main["fp32_ms"],
+            "sfu_ms": main["sfu_ms"], "tensor_ms": main["tensor_ms"],
+            "bound_ms_fp32_dp": main["bound_ms_fp32_dp"],
             "tested_pairs": main["pairs"], "listed_pairs": main["listed_pairs"],
             "least_pairs": main["least_pairs"], "least_bound_ms": main["least_bound_ms"],
+            "least_bound_ms_fp32_dp": main["least_bound_ms_fp32_dp"],
             "library_ms": None, "any_hit_ms": any_hit["ms"],
             "any_hit_bound_ms": any_hit["bound_ms"], "b6_ms": main["b6_ms"],
             "reference_ms": ref["ms"], "reference_plain_ms": ref["plain_ms"],
-            "reference_bound_ms": ref["bound_ms"], "reference_b6_ms": ref["b6_ms"]}
+            "reference_bound_ms": ref["bound_ms"], "reference_b6_ms": ref["b6_ms"],
+            "reference_tested_pairs": ref["pairs"], "reference_least_pairs": ref["least_pairs"],
+            "reference_least_bound_ms": ref["least_bound_ms"],
+            "reference_least_bound_ms_fp32_dp": ref["least_bound_ms_fp32_dp"]}
 
 
 SIZE = 512

@@ -4,8 +4,8 @@
 
 Counterpart of tools/perf_probe.py (`probe_hitfrac`, `probe_kernel`,
 `probe_roofline`; its `probe_step` needs the projector-texture route, which
-is not ported).  The probes are hitfrac, kernel, roofline, sass, votes and
-launches.  Each measurement prints one JSON line; with `out.json` they are
+is not ported).  The probes are hitfrac, kernel, roofline, sass, votes,
+launches and tc_sum.  Each measurement prints one JSON line; with `out.json` they are
 also written there.  The card's name and power limit come first.
 
 Timing: CUDA events around `n` calls after one warm-up call (`cuda_ms`),
@@ -40,7 +40,9 @@ and kernel.  Every probe uses one variant of the vocalfold scene and
   (the `-Xptxas -v` report of the build) and the instructions of its inner
   loop by class (`cuobjdump -sass` on the built library, whose listing is
   written beside it as `<library>.sass`), per tested face for the Woop and
-  Moller-Trumbore kernels.
+  Moller-Trumbore kernels (for X1 per pair a thread filters, a pair marked
+  by its width's compare with 1/4: its tensor-core products as `hmma`, its
+  reciprocals as `mufu`; the out-of-line exact test is not in the loop).
 - votes: the launches of `VOTE_LAUNCHES`, each the first of its kernel and
   mode in one forward batch of 16 variants at 512x512 (the bounce launches
   of B4, B7g, B3 and B5, the camera and first shadow launches of B1 on main
@@ -52,7 +54,21 @@ and kernel.  Every probe uses one variant of the vocalfold scene and
 - launches: every launch of every intersection kernel in one forward
   batch of the shape chip_smoke.py reports it on (16 variants, 512x512):
   its time, live rays, the pairs it tested and the pairs its inputs need
-  (`least_pairs`), without the plain versions chip_smoke.py replays.
+  (`least_pairs`), without the plain versions chip_smoke.py replays; then
+  X1's four launches of chip_smoke.py's mxu phase (`mxu_scenes`,
+  `mxu_drive`) with its bounds (`mxu_bounds`).  It reaches X1 only through
+  `intersect_mxu_shared` and `intersect_mxu_packed`, so a copy of this file
+  in an older checkout times that checkout's X1 on the same inputs.
+
+- tc_sum: how the tensor cores add the eight products of a TF32 m16n8k8
+  step (`csrc/tc_probe.cu`, the instruction X1 forms d' with), from
+  designed products: whether the products are exact; for two cancelling
+  products 4 and -4 and a third 2^(2-k) in every placement of the three
+  slots, the largest k the sum keeps (the window below the larger
+  operand); how 1 + 2^-24 + 2^-25 and its negation round; then the largest
+  error of 20000 random sums in units of 2^-23 S (S the sum of the
+  products' magnitudes) beside `intersect_mxu.TC_SUM_BOUND`, the bound X1's
+  filter assumes.
 
 `all` runs hitfrac, kernel and roofline.  Needs a CUDA device.
 """
@@ -87,6 +103,8 @@ VPU_OPS_PER_ROUND = 12
 VPU_SHAPE = (2048, 1024)
 VPU_KERNEL = Kernel("ff_vpu_probe", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_void_p])
+TC_KERNEL = Kernel("ff_tc_probe", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_void_p])
 
 # Operations per tested (ray, triangle) pair, by kernel: the least the card
 # must issue for the pair test of csrc/, counted from its source with every
@@ -107,18 +125,46 @@ VPU_KERNEL = Kernel("ff_vpu_probe", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_
 #   of un, vn, tn 3 each (a multiply and two FMAs), their sign products 3,
 #   the sign 2, dn 1, eb 1 and -eb 1, dn + eb 1, un + vn 1, the products
 #   t_min dn, tmax dn, tn bdn, btn dn 4, and 7 compares.  Unfused: 62.
-#   X1 (intersect_mxu_shared), 22: d' = W d 9, |d'_z| and its compare 2,
-#   the reciprocal 1, t = -o'_z (1 / d'_z) 2, u = o'_x + t d'_x and v 2
-#   (one FMA each), u + v 1 and 5 compares.  Unfused: 30.
+#   X1 (intersect_mxu_shared), 15 on the FP32 pipe, its filter: t~ =
+#   -o'_z (1 / d'_z) 1, the width e = D H |1 / d'_z| 2, u = o'_x + t~ d'_x
+#   and v 2 (one FMA each), the widened bounds -1e-6 - e and 1 + 1e-6 + 2e
+#   2, u + v 1, t~ (1 - e) 1, and 6 compares (u, v, the sum, t~ > 0, the
+#   best hit, e against 1/4); absolute values and negations are
+#   operand modifiers.  The reciprocal is one instruction of the
+#   special-function unit (`MXU_SFU_PER_PAIR`), d' = W d runs on the tensor
+#   cores (`MXU_MACS_PER_PAIR`), and the exact test of the few pairs the
+#   filter passes on is not counted.  With d' on the FP32 pipe (9: a
+#   multiply and two FMAs a row) the count was 22
+#   (`MXU_OPS_PER_PAIR_FP32`), 30 unfused.
 OPS_PER_PAIR = {"intersect_shared_culled": 32, "intersect_stream_culled": 32,
                 "intersect_stream_general_culled": 41, "intersect_general": 48,
                 "intersect_general_culled": 48, "intersect_shared": 32, "intersect_stream": 32,
-                "intersect_stream_general": 41, "intersect_mxu_shared": 22}
+                "intersect_stream_general": 41, "intersect_mxu_shared": 15}
+MXU_OPS_PER_PAIR_FP32 = 22
+MXU_SFU_PER_PAIR = 1
+# X1's tensor-core work: three m16n8k8 TF32 products a 16-ray x 8-face tile
+# (d'_x, d'_y, d'_z), 3 x 16 x 8 x 8 multiply-adds over 128 pairs.
+MXU_MACS_PER_PAIR = 24
+# X1's split, on the FP32 pipe: each W entry of a staged face (9) into hi
+# and lo (cvt, subtract, cvt), once per block that stages the cluster; each
+# ray's scale hi(d_x) / d_x, s d_y and s d_z, and the hi and lo of the
+# scaled d_y and d_z, once per ray.
+MXU_SPLIT_OPS_PER_FACE = 27
+MXU_SPLIT_OPS_PER_RAY = 10
+MXU_BLOCK_RAYS = 128  # rays a block of X1 (csrc/intersect_mxu.cu kThreads)
+CHUNK_MXU = 128  # faces a cluster of X1 (kChunk)
 # H100 SXM FP32 outside the tensor cores: 67e12 FLOP/s counts a fused
 # multiply-add as two floating-point operations, so the card issues 33.5e12
 # FP32 operations a second with an FMA as one operation, the unit of
 # OPS_PER_PAIR and of X2's unfused count.
 PEAK_FP32_OPS = 67e12 / 2
+# H100 SXM dense TF32 on the tensor cores: 495e12 FLOP/s, a multiply-add two.
+PEAK_TF32_MACS = 495e12 / 2
+# Reciprocals on the special-function units: 16 results a clock an SM
+# against 128 FP32 operations (CUDA C++ Programming Guide, throughput of
+# the arithmetic instructions, compute capability 9.0), at the clock that
+# gives PEAK_FP32_OPS.
+PEAK_SFU_OPS = PEAK_FP32_OPS * 16 / 128
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
@@ -460,7 +506,7 @@ def probe_roofline(device, size: int = 512, n_iter: int = 20) -> list[dict]:
 _SASS_CLASSES = {
     "FFMA": "ffma", "FMUL": "fmul", "FADD": "fadd", "FSETP": "fsetp", "FSEL": "select",
     "SEL": "select", "FMNMX": "fminmax", "PLOP3": "plop3", "LDS": "lds", "LDG": "ldg",
-    "LDGSTS": "ldg", "LDC": "ldc", "ULDC": "ldc", "MOV": "mov",
+    "LDGSTS": "ldg", "LDC": "ldc", "ULDC": "ldc", "MOV": "mov", "HMMA": "hmma", "MUFU": "mufu",
     **dict.fromkeys(("IADD3", "IMAD", "LOP3", "ISETP", "SHF", "LEA", "IABS", "IMNMX", "SGXT",
                      "PRMT", "POPC", "FLO", "VIADD", "VIMNMX", "UIADD3", "UIMAD", "ULOP3",
                      "USHF", "ULEA", "UISETP", "UMOV", "S2R", "S2UR", "CS2R"), "integer"),
@@ -475,6 +521,9 @@ _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]
 # or float32(1e-9), the floor of |det| (kEpsDet) in every Moller-Trumbore one.
 _PAIR_MARK = re.compile(r"9\.99999996004197\d*e-13|0x2b8cbccc|9\.999999717180\d*e-10|0x3089705f",
                         re.IGNORECASE)
+# X1's filter compares each pair's width with 1/4 (kWide); its 1e-12 compare
+# is in the out-of-line exact test.
+_X1_MARK = re.compile(r"(?<![\d.])0\.25(?![\d])")
 
 
 def sass_functions(text: str) -> dict[str, list[tuple]]:
@@ -518,12 +567,12 @@ def _is_lds128(op: str) -> bool:
     return op.startswith("LDS") and ".128" in op
 
 
-def _pair_marks(body: list[tuple]) -> int:
+def _pair_marks(body: list[tuple], mark: re.Pattern = _PAIR_MARK) -> int:
     return sum(1 for _, _, op, args, _ in body
-               if op.startswith("FSETP") and _PAIR_MARK.search(args))
+               if op.startswith("FSETP") and mark.search(args))
 
 
-def inner_loop_counts(ins: list[tuple]) -> dict:
+def inner_loop_counts(ins: list[tuple], mark: re.Pattern = _PAIR_MARK) -> dict:
     """Instructions of a function's innermost loop over pair tests (of the
     back edges, branches to an address at or before their own, the
     shortest span that holds a pair test's compare, `_PAIR_MARK`, whatever
@@ -533,13 +582,13 @@ def inner_loop_counts(ins: list[tuple]) -> dict:
     when no such loop exists."""
     spans = [[x for x in ins if target <= x[0] <= addr] for addr, *_, target in ins
              if target is not None and target <= addr]
-    spans = ([body for body in spans if _pair_marks(body)]
+    spans = ([body for body in spans if _pair_marks(body, mark)]
              or [body for body in spans if any(_is_lds128(x[2]) for x in body)])
     if not spans:
         return {}
     best = min(spans, key=len)
     classes = dict(Counter(sass_class(pred, op) for _, pred, op, _, _ in best))
-    faces = _pair_marks(best)
+    faces = _pair_marks(best, mark)
     out = {"loop_instructions": len(best), "loop_faces": faces,
            "loop_lds128": sum(1 for x in best if _is_lds128(x[2])), "loop_classes": classes}
     if faces:
@@ -586,7 +635,7 @@ def probe_sass(device) -> list[dict]:
         suffix = f"_c{chunk[-1]}" if chunk else ""
         out.append(_emit(f"sass_{label.split()[0]}{suffix}", function=name, kernel=label,
                          instructions=len(ins), **resources.get(name, {}),
-                         **inner_loop_counts(ins)))
+                         **inner_loop_counts(ins, _X1_MARK if label.startswith("X1") else _PAIR_MARK)))
     return out
 
 
@@ -666,6 +715,87 @@ def least_pairs(rec: dict, t: Tensor, prim: Tensor) -> float:
     return vote_widths(rec, t, prim, widths=(1,))[1] * faces_per_cluster(rec)
 
 
+def mxu_bounds(rec: dict, pairs: float, least: float, nbytes: float, tested: Tensor) -> dict:
+    """X1's bounds for one launch with recorded inputs `rec`, `pairs` tested
+    and `least` needed pairs, `nbytes` moved and the kernel's `tested`
+    counts: each the largest of the FP32 pipe's operations (OPS_PER_PAIR
+    and the split: a face's once per block that stages its cluster, at
+    least the clusters of the block's busiest warp, or once per variant for
+    the least, and a live ray's once), the special-function units'
+    reciprocals, the tensor cores' multiply-adds and, for the tested pairs,
+    the bytes; beside them, as `*_fp32_dp`, the bounds with d' on the FP32
+    pipe (MXU_OPS_PER_PAIR_FP32, the count before d' ran on the tensor cores)."""
+    name = "intersect_mxu_shared"
+    tmax = rec["tmax_tiles"]
+    b = tmax.shape[0]
+    live = tmax.reshape(b, -1) >= 0
+    staged = float(tested.reshape(b, -1, MXU_BLOCK_RAYS).amax(-1).double().sum()) * CHUNK_MXU
+    faces = rec["woop"].shape[2]
+    rays_ops = float(live.sum()) * MXU_SPLIT_OPS_PER_RAY
+
+    def pipes(n_pairs: float, staged_faces: float) -> dict:
+        fp32 = n_pairs * OPS_PER_PAIR[name] + staged_faces * MXU_SPLIT_OPS_PER_FACE + rays_ops
+        return {"fp32": fp32 / PEAK_FP32_OPS * 1e3,
+                "sfu": n_pairs * MXU_SFU_PER_PAIR / PEAK_SFU_OPS * 1e3,
+                "tensor": n_pairs * MXU_MACS_PER_PAIR / PEAK_TF32_MACS * 1e3}
+
+    mem_ms = nbytes / PEAK_BYTES * 1e3
+    ms = pipes(pairs, staged)
+    least_ms = pipes(least, b * faces)
+    pipe = max(ms, key=ms.get)
+    old = MXU_OPS_PER_PAIR_FP32 / PEAK_FP32_OPS * 1e3
+    bound = max(mem_ms, ms[pipe])
+    return {"bound_ms": bound, "bound_by": "bytes" if bound == mem_ms else "operations",
+            "bound_pipe": pipe, "fp32_ms": ms["fp32"], "sfu_ms": ms["sfu"],
+            "tensor_ms": ms["tensor"], "bytes_ms": mem_ms,
+            "least_bound_ms": max(least_ms.values()),
+            "bound_ms_fp32_dp": max(mem_ms, pairs * old), "least_bound_ms_fp32_dp": least * old}
+
+
+# The shapes whose camera rays X1 is driven on (chip_smoke.py's mxu phase).
+MXU_SHAPES = ("main", "reference")
+
+
+def mxu_scenes(device, size: int = 512, batch: int = 16) -> list[tuple]:
+    """X1's inputs: for each shape of MXU_SHAPES, `batch` randomized
+    variants (seeds 0 ..) and their jittered camera rays at size x size, as
+    the paths cast them: (shape, camera origins (B, 3), d (B, N, 3),
+    vertices, faces)."""
+    seeds = list(range(batch))
+    out = []
+    for tag in MXU_SHAPES:
+        bridge, randomize, beams = main_path.build(device, resolution=main_path.SHAPES[tag][0])
+        rs = main_path.scene_batch(bridge, randomize, beams, main_path.generators(seeds, device))
+        _, d, _ = camera_rays_tiled(rs.camera, size, size,
+                                    gens=main_path.generators(seeds, device))
+        out.append((tag, rs.camera.to_world[:, :3, 3].contiguous(), d, rs.geometry.vertices,
+                    rs.geometry.faces))
+    return out
+
+
+def mxu_drive(scenes: list[tuple]) -> tuple[list[tuple], list[dict]]:
+    """X1 through its entry point on each scene of `mxu_scenes`, once with
+    t_max = 1e30 and once with a per-ray t_max of each variant's median hit
+    distance times 0.9-1.1 (seed 3): per scene (shape, faces, t, prim, the
+    per-ray t_max, its (t, prim)), and the launches' inputs
+    (`Kernel.recorded`), two a scene."""
+    from fireflies_tpu_torch.experiments import intersect_mxu as mx  # noqa: PLC0415
+
+    mx.KERNEL.recorded = []
+    outs = []
+    with torch.no_grad():
+        for tag, cam, d, verts, faces in scenes:
+            t, prim = mx.intersect_mxu_shared(cam, d, verts, faces)
+            u = torch.rand(d.shape[:2], device=d.device,
+                           generator=torch.Generator(device=d.device).manual_seed(3))
+            median = torch.where(prim >= 0, t, torch.nan).nanmedian(dim=1, keepdim=True).values
+            t_max = median * (0.9 + 0.2 * u)
+            outs.append((tag, faces.shape[0], t, prim, t_max,
+                         mx.intersect_mxu_shared(cam, d, verts, faces, t_max=t_max)))
+    recorded, mx.KERNEL.recorded = mx.KERNEL.recorded, None
+    return outs, recorded
+
+
 # Faces B3 and B5 stage at once (kBatchFaces of csrc/intersect_general.cuh):
 # their tasks' lanes are counted over such batches.
 RESIDENT_BATCH_FACES = 256
@@ -743,7 +873,8 @@ def probe_launches(device, size: int = 512, batch: int = 16) -> list[dict]:
     """Every launch of every intersection kernel in one forward batch of the
     first shape of `main_path.SHAPES` that runs it (the path chip_smoke.py
     reports it on), without the plain versions: its time, and the pairs it
-    tested beside the pairs its inputs need (`least_pairs`)."""
+    tested beside the pairs its inputs need (`least_pairs`); then X1's
+    launches on the mxu phase's inputs (`_mxu_launches`)."""
     from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
 
     out, seen = [], set()
@@ -767,11 +898,107 @@ def probe_launches(device, size: int = 512, batch: int = 16) -> list[dict]:
                                  tested_pairs=pairs, least_pairs=least, bound_ms=pairs * ops,
                                  least_bound_ms=least * ops))
         del recorded
+    out += _mxu_launches(device, size, batch)
     return out
 
 
+def _mxu_launches(device, size: int, batch: int) -> list[dict]:
+    """X1's launches on the inputs of chip_smoke.py's mxu phase
+    (`mxu_scenes`, `mxu_drive`): time, tested and least pairs, bounds."""
+    from fireflies_tpu_torch.experiments import intersect_mxu as mx  # noqa: PLC0415
+
+    _, recorded = mxu_drive(mxu_scenes(device, size, batch))
+    out = []
+    for i, rec in enumerate(recorded):
+        shape, cut = MXU_SHAPES[i // 2], ("1e30", "per_ray")[i % 2]
+        ms = cuda_ms(lambda rec=rec: mx.intersect_mxu_packed(**rec), 20)
+        tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
+        t, prim = mx.intersect_mxu_packed(**rec, tested=tested)
+        pairs = float(tested.double().sum()) * faces_per_cluster(rec)
+        least = least_pairs(rec, t, prim)
+        nbytes = sum(x.numel() * x.element_size() for x in rec.values()
+                     if isinstance(x, Tensor)) + 2 * t.numel() * 4
+        out.append(_emit(f"launch_mxu_{shape}_{cut}", kernel="intersect_mxu_shared", ms=ms,
+                         live_rays=int((rec["tmax_tiles"] >= 0).sum()), tested_pairs=pairs,
+                         least_pairs=least, **mxu_bounds(rec, pairs, least, nbytes, tested)))
+    return out
+
+
+def tc_sums(products: Tensor, device) -> Tensor:
+    """Each row of `products` (n, 8, 2) float64 [slot][a, b], TF32 values,
+    as one k8 step of the tensor cores (`csrc/tc_probe.cu`): the float32
+    sum of a_k b_k over the eight slots, (n,) float64."""
+    n = products.shape[0]
+    a = torch.zeros(n, 16, 8, dtype=torch.float32)
+    b = torch.zeros(n, 8, 8, dtype=torch.float32)
+    a[:, 0, :] = products[:, :, 0].float()
+    b[:, :, 0] = products[:, :, 1].float()
+    if not (torch.equal(a[:, 0, :].double(), products[:, :, 0])
+            and torch.equal(b[:, :, 0].double(), products[:, :, 1])):
+        raise ValueError("tc_sums: products must be float32 values")
+    a, b = a.to(device), b.to(device)
+    d = torch.empty(n, 16, 8, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        TC_KERNEL.launch(ptr(a), ptr(b), ptr(d), n, stream_of(device))
+    return d[:, 0, 0].double().cpu()
+
+
+def _placed(*terms) -> Tensor:
+    """One k8 step from (slot, a, b) terms, other slots zero."""
+    row = torch.zeros(8, 2, dtype=torch.float64)
+    for slot, x, y in terms:
+        row[slot] = torch.tensor([x, y], dtype=torch.float64)
+    return row
+
+
+def tc_random(n: int, seed: int = 1) -> Tensor:
+    """`n` random k8 steps: eight products of TF32 values (11-bit
+    significands, exponents -12 to 0, random signs), (n, 8, 2) float64."""
+    g = torch.Generator().manual_seed(seed)
+
+    def tf32_values():
+        sig = (1024 + torch.randint(0, 1024, (n, 8), generator=g)).double() / 1024
+        return sig * 2.0 ** torch.randint(-12, 1, (n, 8), generator=g).double()
+
+    sign = torch.where(torch.rand(n, 8, generator=g) < 0.5, -1.0, 1.0).double()
+    return torch.stack([tf32_values() * sign, tf32_values()], -1)
+
+
+def probe_tc_sum(device) -> list[dict]:
+    from fireflies_tpu_torch.experiments import intersect_mxu as mx  # noqa: PLC0415
+
+    rows = tc_random(2000, seed=0)
+    one = torch.zeros_like(rows)
+    pick = torch.arange(2000) % 8
+    one[torch.arange(2000), pick] = rows[torch.arange(2000), pick]
+    exact = bool(torch.equal(tc_sums(one, device), (one[..., 0] * one[..., 1]).sum(1)))
+    # the window: 4 - 4 + 2^(2-k) in each ordered placement of the three slots
+    places = [(i, j, m) for i in range(8) for j in range(8) for m in range(8)
+              if len({i, j, m}) == 3]
+    ks = list(range(20, 70))
+    steps = torch.stack([_placed((i, 4.0, 1.0), (j, 4.0, -1.0), (m, 2.0 ** (2 - k), 1.0))
+                         for i, j, m in places for k in ks])
+    kept = (tc_sums(steps, device) == (steps[..., 0] * steps[..., 1]).sum(1)).reshape(
+        len(places), len(ks))
+    window = [max([k for k, ok in zip(ks, row.tolist()) if ok] or [0]) for row in kept]
+    rounding = tc_sums(torch.stack([
+        _placed((0, 1.0, 1.0), (1, 2.0**-24, 1.0), (2, 2.0**-25, 1.0)),
+        _placed((0, 1.0, -1.0), (1, 2.0**-24, -1.0), (2, 2.0**-25, -1.0))]), device)
+    rnd = tc_random(20000)
+    prods = rnd[..., 0] * rnd[..., 1]
+    err = (tc_sums(rnd, device) - prods.sum(1)).abs() / prods.abs().sum(1)
+    return [_emit("tc_sum", products_exact=exact,
+                  window_bits_min=min(window), window_bits_max=max(window),
+                  placements_kept_past_25=sum(w > 25 for w in window),
+                  placements=len(places),
+                  one_plus_0p75_ulp=float(rounding[0]), minus_one_plus_0p75_ulp=float(rounding[1]),
+                  random_max_err_units_2m23_s=float(err.max()) / 2.0**-23,
+                  tc_sum_bound_units_2m23_s=mx.TC_SUM_BOUND / 2.0**-23)]
+
+
 PROBES = {"hitfrac": probe_hitfrac, "kernel": probe_kernel, "roofline": probe_roofline,
-          "sass": probe_sass, "votes": probe_votes, "launches": probe_launches}
+          "sass": probe_sass, "votes": probe_votes, "launches": probe_launches,
+          "tc_sum": probe_tc_sum}
 
 
 def main() -> None:

@@ -53,6 +53,7 @@ KERNEL_NAMES = {
     "B7s intersect_stream": ("intersect_shared_kernel<16, false,",
                              "intersect_shared_kernelILi16ELb0E"),
     "B7g intersect_stream_general": ("stream_general_kernel<false>", "stream_general_kernelILb0E"),
+    "X1 intersect_mxu_shared": ("intersect_mxu_kernel(", "intersect_mxu_kernelEPKf"),
 }
 
 

@@ -2,9 +2,10 @@
 (shared culled), B3 (general), B2 and B4 (streamed culled, with emitted
 attributes), B5 (general culled), B6 (shared, every cluster front to back),
 B7s and B7g (streamed, every cluster), X1 (the reference's parked
-matrix-unit intersection, bit for bit) and the probe's FP32 throughput kernel
-X2 (bit for bit).  Marked `cuda`; skipped where torch.cuda.is_available() is
-false.  Run on a GPU machine with
+matrix-unit intersection, whose split-TF32 tensor-core d' filters the pairs
+it then tests as the plain version does: bit for bit) and the probe's FP32
+throughput kernel X2 (bit for bit).  Marked `cuda`; skipped
+where torch.cuda.is_available() is false.  Run on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
@@ -16,7 +17,8 @@ normal and material equal where the prims agree.  The per-ray counts of
 tested clusters (`tested`) are exact integers: 0 on dead rays, never more
 than the ray's tile lists.  What they count follows each kernel's body:
 the clusters a ray's warp tested for B1, B2, B6 and B7s
-(`csrc/intersect_shared.cuh`, a slab vote per warp), the clusters its own
+(`csrc/intersect_shared.cuh`, a slab vote per warp) and X1
+(`csrc/intersect_mxu.cu`, a vote per warp of live rays), the clusters its own
 slab test opened for B3, B5 (`csrc/intersect_general.cuh`), B4 and B7g.
 """
 
@@ -177,11 +179,20 @@ def test_stream_kernel_matches_plain(dev, general, any_hit):
     _check(out, ist.stream_packed_plain(rays, tm, woop16, boxes, 1e-4, any_hit), any_hit)
 
 
+def _mxu_check(out, plain):
+    """X1 against its plain version: t and prim bit for bit (the tensor
+    cores only filter the pairs; the kernel tests those that pass in the
+    plain version's float32 operations)."""
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], plain[1]) and torch.equal(out[0], plain[0])
+    assert bool((plain[1] >= 0).any()) and bool(torch.isfinite(out[0]).all())
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_mxu_kernel_matches_plain(dev, any_hit):
-    """X1 bit for bit against its plain version (both round each operation
-    alike) on 6000 rays, so the last 128-ray group is partly padding; the
-    entry point gives the packed call's rows."""
+    """X1 against its plain version on 6000 rays, so the last 128-ray group
+    is partly padding; the entry point gives the packed call's rows bit for
+    bit."""
     verts, faces, _, d, tmax = _inputs(dev, seed=10)
     origin = torch.tensor([[0.0, 0.5, 4.0]] * 3, device=dev)
     woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=mx.CHUNK)
@@ -190,8 +201,7 @@ def test_mxu_kernel_matches_plain(dev, any_hit):
     out = mx.intersect_mxu_packed(dirs, tm, woop, boxes, 1e-4, any_hit)
     assert mx.KERNEL.launches == before + 1
     plain = mx.intersect_mxu_packed_plain(dirs, tm, woop, boxes, 1e-4, any_hit)
-    _check(out, plain, any_hit)
-    assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+    _mxu_check(out, plain)
     t, prim = mx.intersect_mxu_shared(origin, d, verts, faces, t_max=tmax, any_hit=any_hit)
     assert torch.equal(prim, out[1].reshape(3, -1)[:, :n])
     assert torch.equal(t, out[0].reshape(3, -1)[:, :n])
@@ -199,9 +209,10 @@ def test_mxu_kernel_matches_plain(dev, any_hit):
 
 def test_mxu_one_ray_opens_a_cluster_for_its_group(dev):
     """Two clusters of 128 small faces seen from the origin, one down -z and
-    one along +x.  Every ray of the first two 128-ray groups looks down -z
-    (within 0.1 rad) but ray 5, which looks along +x: its vote makes all of
-    group 0 test both clusters, while group 1 tests only the first."""
+    one along +x.  Every ray of the first 256 looks down -z (within 0.1 rad)
+    but ray 5, which looks along +x: its vote makes its warp (rays 0-31)
+    test both clusters, while every other warp tests only the first; the
+    padding rays are dead and count 0."""
     rng = np.random.default_rng(11)
     centres = np.concatenate([rng.uniform(-0.5, 0.5, (128, 3)) * [1, 1, 0.1] + [0, 0, -5],
                               rng.uniform(-0.5, 0.5, (128, 3)) * [0.1, 1, 1] + [5, 0, 0]])
@@ -218,11 +229,81 @@ def test_mxu_one_ray_opens_a_cluster_for_its_group(dev):
     tested = torch.full_like(tm, -1, dtype=torch.int32)
     out = mx.intersect_mxu_packed(dirs, tm, woop, boxes, 1e-4, tested=tested)
     plain = mx.intersect_mxu_packed_plain(dirs, tm, woop, boxes, 1e-4)
-    _check(out, plain, False)
-    assert torch.equal(out[1], plain[1])
+    _mxu_check(out, plain)
     tested = tested.reshape(-1)
-    assert bool((tested[:128] == 2).all()) and bool((tested[128:256] == 1).all())
+    assert bool((tested[:mx.WARP] == 2).all()) and bool((tested[mx.WARP:256] == 1).all())
     assert bool((tested[256:] == 0).all())  # padding: dead
+
+
+def test_mxu_grazing_rays_within_conditioned_bound(dev):
+    """Rays from the origin nearly parallel to a large triangle in the plane
+    x + z = 0.01: n . d = delta / |d| with delta in [3e-4, 3e-3], so kappa =
+    sum_i |W_zi d_i| / |d'_z| is about 2 / delta, 700 to 7000, and t about
+    14 / (delta / 1e-3).  The tensor cores' d'_z is then off by up to kappa
+    times its relative error, which the filter's width grows with, so the
+    kernel still returns the plain version's t and prim bit for bit."""
+    rng = np.random.default_rng(12)
+    n_rays = 4096
+    delta = rng.uniform(3e-4, 3e-3, n_rays)
+    d = np.stack([np.ones(n_rays), rng.uniform(-0.2, 0.2, n_rays), -1.0 + delta], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    big = np.array([[0.01 - 100.0, -60.0, 100.0], [0.01 + 100.0, -60.0, -100.0],
+                    [0.01, 120.0, 0.0]])  # x + z = 0.01 at every vertex
+    small = rng.uniform(-1, 1, (255, 1, 3)) + rng.uniform(-0.1, 0.1, (255, 3, 3)) + [0, 0, 30]
+    tris = np.concatenate([big[None], small])
+    verts = torch.as_tensor(tris.reshape(1, -1, 3), dtype=torch.float32, device=dev)
+    faces = torch.arange(768, device=dev).reshape(256, 3)
+    origin = torch.zeros(1, 3, device=dev)
+    woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=mx.CHUNK)
+    dirs, tm, _ = ik.pack_dirs(torch.as_tensor(d[None], dtype=torch.float32, device=dev), 1e30)
+    out = mx.intersect_mxu_packed(dirs, tm, woop, boxes, 1e-4)
+    plain = mx.intersect_mxu_packed_plain(dirs, tm, woop, boxes, 1e-4)
+    _mxu_check(out, plain)
+    hits = plain[1].reshape(-1)[:n_rays]
+    assert int((hits == 0).sum()) > 0.9 * n_rays
+
+
+def test_mxu_t_tie_in_one_tile_goes_to_the_lowest_face(dev):
+    """One triangle at faces 2, 3, 5 and 13 (identical rows, so equal t bit
+    for bit): faces 2 and 3 fall to one lane of a quad (columns 2 and 3 of
+    the first 8-face tile), 5 to another lane, and 13 to that lane again in
+    the next tile.  Every ray through it gets face 2, from the kernel (its
+    visiting order, then the quad's reduction by (t, face)) as from the
+    plain version's first-index argmin."""
+    rng = np.random.default_rng(13)
+    tri = np.array([[-1.0, -1.0, -3.0], [1.0, -1.0, -3.0], [0.0, 1.0, -3.0]])
+    tris = rng.uniform(-1, 1, (128, 1, 3)) + rng.uniform(-0.1, 0.1, (128, 3, 3)) + [0, 0, 30]
+    tris[[2, 3, 5, 13]] = tri
+    verts = torch.as_tensor(tris.reshape(1, -1, 3), dtype=torch.float32, device=dev)
+    faces = torch.arange(384, device=dev).reshape(128, 3)
+    d = np.concatenate([rng.uniform(-0.15, 0.15, (2048, 2)), -np.ones((2048, 1))], -1)
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32,
+                        device=dev)
+    origin = torch.zeros(1, 3, device=dev)
+    woop, boxes = ik.pack_triangles_woop(verts, faces, origin, chunk=mx.CHUNK)
+    dirs, tm, _ = ik.pack_dirs(d[None], 1e30)
+    out = mx.intersect_mxu_packed(dirs, tm, woop, boxes, 1e-4)
+    plain = mx.intersect_mxu_packed_plain(dirs, tm, woop, boxes, 1e-4)
+    _mxu_check(out, plain)
+    hit = (out[1] >= 0) & (plain[1] >= 0)
+    assert int(hit.sum()) > 1000
+    assert bool((out[1][hit] == 2).all()) and bool((plain[1][hit] == 2).all())
+
+
+def test_tc_sum_within_the_filter_bound(dev):
+    """The tensor cores' TF32 k8 sum (`csrc/tc_probe.cu`, the instruction
+    X1 forms d' with) multiplies exactly, and adds random products within
+    `intersect_mxu.TC_SUM_BOUND` of the sum of their magnitudes, the bound
+    X1's filter assumes."""
+    rows = perf_probe.tc_random(20000)
+    before = perf_probe.TC_KERNEL.launches
+    got = perf_probe.tc_sums(rows, dev)
+    assert perf_probe.TC_KERNEL.launches == before + 1
+    prods = rows[..., 0] * rows[..., 1]
+    assert bool(((got - prods.sum(1)).abs() <= mx.TC_SUM_BOUND * prods.abs().sum(1)).all())
+    one = torch.zeros_like(rows)
+    one[:, 3] = rows[:, 3]
+    assert torch.equal(perf_probe.tc_sums(one, dev), one[:, 3, 0] * one[:, 3, 1])
 
 
 def test_vpu_probe_matches_plain_bitwise(dev):
