@@ -20,7 +20,10 @@ B5 `csrc/intersect_general.cuh` (staged batches, each ray tested against
 the clusters its own slab test opens), B4 and B7g `csrc/intersect_stream.cuh`.
 Then X1, the reference's parked matrix-unit intersection, through its own
 entry point on the camera rays of the main and reference shapes, and the
-probe's FP32 throughput kernel X2 and kernel roof.
+probe's FP32 throughput kernel X2 and kernel roof.  On the main shape the
+texture route (`analytic=False`: the beams rasterized once a step into a
+256x256 projector texture, bench.py's `analytic=0` rows) runs too, on B1
+and B3, and `bench.measure` gives diff-renders/s, the reference's unit.
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: the card's name and power limit; CUDA must be available;
@@ -43,8 +46,16 @@ Phases (each raises on failure, so any failure exits non-zero):
   5. forward: `render_batch` with every launch counter set to 0 just before
      it and read just after: the path's kernels must have launched and no
      other; then renders/s (median of 5 timed batches);
-  6. pattern step: loss and the (144, 3) beam gradient, seconds per step
-     and peak device memory;
+  6. pattern step (one batched render of the 16 variants and one
+     backward): loss and the (144, 3) beam gradient, seconds per step and
+     peak device memory;
+  on the main shape, after its pattern step:
+     texture: phases 4-6 with the texture projector (the counted forward's
+     launches B1 and B3 and no other);
+     C2: the batched pattern step's gradient against the per-variant loop's
+     accumulated gradient on 4 variants, within 1e-5 relative (1e-5 of the
+     largest component absolute), as tests/test_torch_render_texture.py
+     holds it on the CPU;
   7. probe: X2 (`perf_probe.vpu_roof`, its counter set to 0 just before and
      read just after) bit for bit against its plain version, its time,
      bound and rate of unfused FP32 operations; the kernel roof (B3 on a
@@ -58,6 +69,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      tests as the plain version does), and as any-hit, which must give the
      closest-hit outputs; X1's prims
      against B6's on the same rays; times and bounds.
+  9. bench: `bench.measure` (diff-renders/s: batch x repeats over the best
+     window's wall time, after one warm-up step) for the headline row, the
+     texture row and the reference shape (resolution 75, spp 4, coherent
+     bounce, shared primary), each with few repeats and trials; one JSON
+     line each.
 Then one JSON line with the kernels (each with its fused operations per
 tested pair, `ops_per_pair`, and for the nine intersection kernels
 `least_pairs` and `least_bound_ms`; for X1 beside them its tensor-core
@@ -287,14 +303,14 @@ def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None)
     return results
 
 
-def reference_phase(bridge, randomize, beams, dev) -> None:
+def reference_phase(bridge, randomize, beams, dev, analytic: bool = True) -> None:
     """A small deterministic render (pixel-centre rays, one bounce) through
     the CUDA kernels against the same render through the plain versions on
-    the CPU: within 1e-4 of the image max on >= 99.9% of pixels."""
+    the CPU: within 1e-4 of the image max on >= 99.9% of pixels.  With
+    `analytic=False` the projector is the texture route's."""
     import torch  # noqa: PLC0415
 
     from fireflies_tpu_torch import main_path  # noqa: PLC0415
-    from fireflies_tpu_torch.projection import laser  # noqa: PLC0415
     from fireflies_tpu_torch.render import RenderConfig, pathtracer, rays  # noqa: PLC0415
 
     cfg = RenderConfig(width=128, height=32, spp=1, max_bounces=1, static_geometry=True)
@@ -302,9 +318,7 @@ def reference_phase(bridge, randomize, beams, dev) -> None:
     for device in (dev, torch.device("cpu")):
         params = randomize(torch.Generator(device=dev).manual_seed(7), 0)
         params = {k: v.to(device) for k, v in params.items()}
-        params.update(laser.rays_to_beam_params(
-            beams.to(device), main_path.PROJECTOR_FOV, sigma=main_path.BEAM_SIGMA,
-            texture_size=main_path.BEAM_TEXTURE))
+        params.update(main_path.projector_params(beams.to(device), analytic))
         scene = bridge.assemble(params)
         o, d, _ = rays.camera_rays_tiled(scene.camera, cfg.width, cfg.height)
         with torch.no_grad():
@@ -317,7 +331,8 @@ def reference_phase(bridge, randomize, beams, dev) -> None:
         raise AssertionError("CUDA render disagrees with the plain-version render")
 
 
-def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected) -> dict:
+def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected,
+                  analytic: bool = True) -> dict:
     """One counted forward batch (every counter set to 0 just before, read
     just after): each kernel of `expected` must have launched and no other;
     then renders/s, the median of 5 timed batches after one more.  Returns
@@ -330,7 +345,7 @@ def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected) -> dict:
     for k in KERNELS.values():
         k.launches = 0
     with torch.no_grad():
-        img = main_path.render_batch(bridge, randomize, beams, seeds, cfg)
+        img = main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
         torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"[{tag}/forward] image {tuple(img.shape)} mean {img.mean().item():.6g} "
@@ -345,11 +360,11 @@ def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected) -> dict:
         raise AssertionError(f"{tag}: a kernel of another route was launched: {launches}")
     times = []
     with torch.no_grad():
-        main_path.render_batch(bridge, randomize, beams, seeds, cfg)
+        main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            main_path.render_batch(bridge, randomize, beams, seeds, cfg)
+            main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
     med = statistics.median(times)
@@ -358,19 +373,20 @@ def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected) -> dict:
     return launches
 
 
-def pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev) -> None:
-    """Pattern step after a one-variant warm-up (the first backward in a
-    process loads the backward ops' kernels): loss and a finite, nonzero
-    (144, 3) beam gradient, s/step and peak device memory."""
+def pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev, analytic: bool = True) -> None:
+    """Pattern step (one batched render of every variant, one backward)
+    after a one-variant warm-up (the first backward in a process loads the
+    backward ops' kernels): loss and a finite, nonzero (144, 3) beam
+    gradient, s/step and peak device memory."""
     import torch  # noqa: PLC0415
 
     from fireflies_tpu_torch import main_path  # noqa: PLC0415
 
-    main_path.pattern_step(bridge, randomize, beams, seeds[:1], cfg)
+    main_path.pattern_step(bridge, randomize, beams, seeds[:1], cfg, analytic)
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss, grad = main_path.pattern_step(bridge, randomize, beams, seeds, cfg)
+    loss, grad = main_path.pattern_step(bridge, randomize, beams, seeds, cfg, analytic)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -378,6 +394,50 @@ def pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev) -> None:
         f"{step_s:.4f} s/step, peak {peak:.3f} GiB")
     if tuple(grad.shape) != (144, 3) or not torch.isfinite(grad).all() or grad.abs().max() == 0:
         raise AssertionError("beam gradient is not a finite nonzero (144, 3) tensor")
+
+
+def c2_phase(bridge, randomize, beams, seeds, cfg) -> None:
+    """The batched pattern step against the per-variant loop it replaced
+    (render one variant, backward, accumulate), on the same seeds: each
+    variant draws from its own generator, so loss and gradient agree up to
+    summation order, within 1e-5 relative (1e-5 of the largest gradient
+    component absolute)."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    loss, grad = main_path.pattern_step(bridge, randomize, beams, seeds, cfg)
+    leaf = beams.detach().requires_grad_(True)
+    loss_loop = torch.zeros((), device=beams.device)
+    for seed in seeds:
+        loss_i = main_path.render_batch(bridge, randomize, leaf, [seed], cfg).mean() / len(seeds)
+        loss_i.backward()
+        loss_loop += loss_i.detach()
+    scale = float(leaf.grad.abs().max())
+    err = float((grad - leaf.grad).abs().max())
+    log(f"[main/C2] {len(seeds)} variants: loss {loss.item():.8g} batched, {loss_loop.item():.8g} "
+        f"per variant; max |grad difference| {err:.4g} = {err / scale:.3g} of the largest "
+        f"component {scale:.4g}")
+    if not (torch.isfinite(grad).all() and scale > 0):
+        raise AssertionError("C2: the per-variant gradient is not finite and nonzero")
+    torch.testing.assert_close(loss, loss_loop, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(grad, leaf.grad, rtol=1e-5, atol=1e-5 * scale)
+
+
+def bench_phase() -> list[dict]:
+    """`bench.measure` for the headline row, the texture row and the
+    reference shape, with few repeats and trials; prints each line."""
+    from fireflies_tpu_torch import bench  # noqa: PLC0415
+
+    rows = [dict(), dict(analytic=0), dict(resolution=75, spp=4, coherent=1, shared=1)]
+    lines = []
+    for row in rows:
+        t0 = time.perf_counter()
+        line = bench.measure(**row, repeats=BENCH_REPEATS, trials=BENCH_TRIALS)
+        log(f"[bench] {row}: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
 
 
 def probe_phase(dev) -> dict:
@@ -559,6 +619,8 @@ def mxu_phase(dev) -> dict:
 
 SIZE = 512
 BATCH = 16
+C2_VARIANTS = 4
+BENCH_REPEATS, BENCH_TRIALS = 3, 2
 MXU = "intersect_mxu_shared"
 B1, B3 = "intersect_shared_culled", "intersect_general"
 B2, B4 = "intersect_stream_culled", "intersect_stream_general_culled"
@@ -654,6 +716,16 @@ def main() -> int:
                 launches[name] = counts[name]
         pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
         log(f"[{tag}] {time.perf_counter() - t_path:.1f} s")
+        if tag == "main":
+            t_tex = time.perf_counter()
+            log(f"[texture] main shape, {BATCH} variants, projector texture "
+                f"{main_path.BEAM_TEXTURE} rasterized from {beams.shape[0]} beams")
+            reference_phase(bridge, randomize, beams, dev, analytic=False)
+            forward_phase("texture", bridge, randomize, beams, seeds, cfg, expected,
+                          analytic=False)
+            pattern_phase("texture", bridge, randomize, beams, seeds, cfg, dev, analytic=False)
+            log(f"[texture] {time.perf_counter() - t_tex:.1f} s")
+            c2_phase(bridge, randomize, beams, seeds[:C2_VARIANTS], cfg)
 
     t_mxu = time.perf_counter()
     x1 = mxu_phase(dev)
@@ -662,6 +734,8 @@ def main() -> int:
     t_probe = time.perf_counter()
     x2 = probe_phase(dev)
     log(f"[probe] {time.perf_counter() - t_probe:.1f} s")
+
+    bench_phase()
 
     kernels = []
     for name, (src, body, replaces) in SOURCES.items():

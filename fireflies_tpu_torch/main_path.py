@@ -14,6 +14,10 @@ reference's FF_NO_TILE_CULL=1), on the kernels without cluster lists.
     bridge, randomize, beams = build(device, resolution)
     img = render_batch(bridge, randomize, beams, seeds, cfg)      # (B, H, W, 3)
     loss, grad = pattern_step(bridge, randomize, beams, seeds, cfg)
+
+`analytic=False` takes the reference's texture route (`bench.py`'s
+`analytic=0` rows): the beams are rasterized once a step into a 256x256
+texture that every variant's projector looks up.
 """
 
 from __future__ import annotations
@@ -70,30 +74,40 @@ def generators(seeds, device) -> list[torch.Generator]:
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 
-def scene_batch(bridge: SceneBridge, randomize, beams: Tensor, gens):
+def projector_params(beams: Tensor, analytic: bool = True) -> dict:
+    """The projector entries of one beam pattern, shared by every variant:
+    the analytic beam-splat entries, or the rasterized texture
+    (`bench.py:146-156`: summed splats, no blur)."""
+    if analytic:
+        return laser.rays_to_beam_params(beams, PROJECTOR_FOV, sigma=BEAM_SIGMA,
+                                         texture_size=BEAM_TEXTURE)
+    return {"tex.data": laser.rays_to_texture_rgb(beams, PROJECTOR_FOV, sigma=BEAM_SIGMA,
+                                                  texture_size=BEAM_TEXTURE, blur_kernel=0)}
+
+
+def scene_batch(bridge: SceneBridge, randomize, beams: Tensor, gens, analytic: bool = True):
     """The RenderScene of one randomized variant per generator, each with
     the beam pattern's projector attached."""
-    beam_params = laser.rays_to_beam_params(beams, PROJECTOR_FOV, sigma=BEAM_SIGMA,
-                                            texture_size=BEAM_TEXTURE)
-    return bridge.assemble([dict(randomize(g, 0), **beam_params) for g in gens])
+    proj = projector_params(beams, analytic)
+    return bridge.assemble([dict(randomize(g, 0), **proj) for g in gens])
 
 
 def render_batch(bridge: SceneBridge, randomize, beams: Tensor, seeds,
-                 cfg: RenderConfig) -> Tensor:
+                 cfg: RenderConfig, analytic: bool = True) -> Tensor:
     """Render one randomized variant per seed in one batch; (B, H, W, 3)."""
     gens = generators(seeds, beams.device)
-    return render_rgb(scene_batch(bridge, randomize, beams, gens), gens, cfg)
+    return render_rgb(scene_batch(bridge, randomize, beams, gens, analytic), gens, cfg)
 
 
 def pattern_step(bridge: SceneBridge, randomize, beams: Tensor, seeds,
-                 cfg: RenderConfig) -> tuple[Tensor, Tensor]:
+                 cfg: RenderConfig, analytic: bool = True) -> tuple[Tensor, Tensor]:
     """Loss = mean over variants of the mean image, and its gradient with
-    respect to the (K, 3) beam directions.  Backward runs per variant and
-    accumulates, so memory holds one variant's graph at a time."""
+    respect to the (K, 3) beam directions: one batched render of every
+    seed's variant and one backward, as the reference's value_and_grad over
+    its vmapped batch (`bench.py:145-168`).  Memory holds the whole batch's
+    graph."""
     beams = beams.detach().requires_grad_(True)
-    loss = torch.zeros((), device=beams.device)
-    for seed in seeds:
-        loss_i = render_batch(bridge, randomize, beams, [seed], cfg).mean() / len(seeds)
-        loss_i.backward()
-        loss = loss + loss_i.detach()
-    return loss, beams.grad
+    img = render_batch(bridge, randomize, beams, seeds, cfg, analytic)
+    loss = img.mean(dim=(1, 2, 3)).mean()
+    loss.backward()
+    return loss.detach(), beams.grad

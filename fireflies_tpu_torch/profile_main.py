@@ -1,15 +1,19 @@
 """Where a render path's device time goes, from torch.profiler's device events.
 
     python -m fireflies_tpu_torch.profile_main [--shape main] [--size 512] [--batch 16]
+        [--analytic 1]
 
 `--shape` picks one of the shapes chip_smoke.py drives (`main_path.SHAPES`),
 all with 2 bounces: `main` (1440 faces, spp 1; B1 and B3, the default),
 `mid` (5288 faces, spp 1; B1 and B5), `reference` (the reference-realistic
 shape: 11538 faces, spp 4, coherent bounce, shared primary; B2 and B4), and
 with tile culling off `main_unculled` (B6 and B3) and `reference_unculled`
-(B7s and B7g).
-Profiles one forward batch (`render_batch` under no_grad) and one
-pattern-step variant, each after a warm-up, and prints for each:
+(B7s and B7g).  `--analytic 0` takes the texture route (the beams
+rasterized into a 256x256 projector texture) in place of the analytic
+beam splat.
+Profiles one forward batch (`render_batch` under no_grad) and one pattern
+step over the same batch (one batched render, one backward), each after a
+warm-up, and prints for each:
 
 - wall: host time of the run, with and without the profiler attached
   (median of 3 unprofiled runs);
@@ -121,6 +125,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--shape", choices=sorted(main_path.SHAPES), default="main")
+    ap.add_argument("--analytic", type=int, choices=(0, 1), default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main needs a CUDA device")
@@ -130,17 +135,23 @@ def main() -> None:
     cfg = main_path.bench_config(size=args.size, **shape_cfg)
     seeds = list(range(args.batch))
 
+    analytic = bool(args.analytic)
+
     def forward():
         with torch.no_grad():
-            main_path.render_batch(bridge, randomize, beams, seeds, cfg)
+            main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
 
     def step():
-        main_path.pattern_step(bridge, randomize, beams, seeds[:1], cfg)
+        main_path.pattern_step(bridge, randomize, beams, seeds, cfg, analytic)
 
     print(f"{torch.cuda.get_device_name(0)}, {len(bridge._faces)} faces, "
-          f"{args.size}x{args.size}, spp {cfg.spp}, batch {args.batch}", flush=True)
+          f"{args.size}x{args.size}, spp {cfg.spp}, batch {args.batch}, "
+          f"{'analytic' if analytic else 'texture'} projector", flush=True)
     report(f"forward, batch {args.batch}", forward, args.top)
-    report("pattern step, 1 variant", step, args.top)
+    torch.cuda.reset_peak_memory_stats(dev)
+    report(f"pattern step, batch {args.batch}", step, args.top)
+    print(f"pattern step peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB",
+          flush=True)
 
 
 if __name__ == "__main__":

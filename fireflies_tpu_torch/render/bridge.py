@@ -6,8 +6,14 @@ tight for the intersection kernels, per-face material and mesh ids, and
 the scene-static BSDF lobe flags.  `assemble(params)` turns randomized
 param dicts, one per variant, into a batched `RenderScene`.
 
-Not ported yet: textures, smooth vertex normals and area lights; a scene
-that needs them raises NotImplementedError.
+The projector takes the analytic beam entries ("tex.beams", ...) or a
+texture: "tex.data" or "<projector>.irradiance.data" of each variant, else
+the constructor's `projector_texture`, else ones((8, 8, 3)); (3, H, W)
+textures are moved to (H, W, 3).  A texture that every variant passes as
+the same tensor stays one (H, W, 3) texture for the batch.
+
+Not ported yet: material textures, smooth vertex normals and area lights;
+a scene that needs them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -52,6 +58,13 @@ def _f32(x, device) -> Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _chw_to_hwc(tex: Tensor) -> Tensor:
+    """Accept (3, H, W) (the noise-texture sampler's layout) or (H, W, 3)."""
+    if tex.dim() == 3 and tex.shape[0] == 3 and tex.shape[-1] != 3:
+        return tex.permute(1, 2, 0)
+    return tex
+
+
 class SceneBridge:
     def __init__(
         self,
@@ -61,6 +74,7 @@ class SceneBridge:
         camera_far: float = 1000.0,
         projector_fov: float = 30.0,
         projector_scale: float = 1.0,
+        projector_texture=None,
         background=None,
     ):
         self._scene = scene
@@ -69,6 +83,9 @@ class SceneBridge:
         self._camera_far = float(camera_far)
         self._projector_fov = float(projector_fov)
         self._projector_scale = float(projector_scale)
+        self._projector_texture = (
+            np.asarray(projector_texture, np.float32) if projector_texture is not None else None
+        )
         self._background = (
             np.asarray(background, np.float32) if background is not None else None
         )
@@ -213,28 +230,47 @@ class SceneBridge:
             far=torch.full((b,), self._camera_far, device=dev),
         )
 
-        # ---- projector (analytic beam mode) ---------------------------------
+        # ---- projector --------------------------------------------------------
         projector: Optional[Projector] = None
         proj_ent = scene.projector()
         if proj_ent is not None:
-            if any("tex.beams" not in p for p in variants):
-                raise NotImplementedError(
-                    "only the analytic beam-splat projector is ported: pass 'tex.beams'")
             pname = proj_ent.name()
-            hw = variants[0].get("tex.beam_hw", (256, 256))
-            projector = Projector(
+            pose = dict(
                 to_world=stack(pname + ".to_world"),
                 fov=stack(pname + ".fov", self._projector_fov).reshape(b, -1)[:, 0],
                 near=torch.full((b,), self._camera_near, device=dev),
                 far=torch.full((b,), self._camera_far, device=dev),
-                texture=None,
                 scale=torch.full((b,), self._projector_scale, device=dev),
-                beams_ndc=torch.stack([p["tex.beams"] for p in variants]),
-                beam_sigma=stack("tex.beam_sigma", 10.0, shape=()),
-                beam_color=stack("tex.beam_color", (0.0, 1.0, 0.0), shape=(3,)),
-                beam_hw=(int(hw[0]), int(hw[1])),
             )
+            analytic = ["tex.beams" in p for p in variants]
+            if any(analytic) and not all(analytic):
+                raise ValueError("every variant or none must pass the analytic 'tex.beams'")
+            if all(analytic):
+                hw = variants[0].get("tex.beam_hw", (256, 256))
+                projector = Projector(
+                    **pose,
+                    texture=None,
+                    beams_ndc=torch.stack([p["tex.beams"] for p in variants]),
+                    beam_sigma=stack("tex.beam_sigma", 10.0, shape=()),
+                    beam_color=stack("tex.beam_color", (0.0, 1.0, 0.0), shape=(3,)),
+                    beam_hw=(int(hw[0]), int(hw[1])),
+                )
+            else:
+                projector = Projector(**pose, texture=self._projector_textures(variants, pname,
+                                                                               dev))
 
         background = (_f32(self._background, dev) if self._background is not None else None)
         return RenderScene(geometry=geometry, materials=materials, lights=lights,
                            camera=camera, projector=projector, background=background)
+
+    def _projector_textures(self, variants: list[dict], pname: str, dev) -> Tensor:
+        """The projector texture of each variant: (H, W, 3) when every variant
+        has the same one (the same tensor, or the default), else the
+        (B, H, W, 3) stack."""
+        default = (self._projector_texture if self._projector_texture is not None
+                   else np.ones((8, 8, 3), np.float32))
+        raw = [p.get("tex.data", p.get(pname + ".irradiance.data")) for p in variants]
+        raw = [default if t is None else t for t in raw]
+        if all(t is raw[0] for t in raw):
+            return _chw_to_hwc(_f32(raw[0], dev))
+        return torch.stack([_chw_to_hwc(_f32(t, dev)) for t in raw])

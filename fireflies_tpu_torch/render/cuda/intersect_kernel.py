@@ -277,18 +277,27 @@ def fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
     """a * b + c of float32 tensors (broadcast) rounded once to float32, as
     the card's fused multiply-add (`__fmaf_rn`) rounds it.  In float64 the
     product is exact and the sum s is one rounding away from the exact sum;
-    rounding s to float32 again could land on the wrong side of a float32
-    midpoint.  So s is rounded to odd first: TwoSum gives the sum's rounding
-    error, and an inexact s with an even last bit steps to its neighbour on
-    the error's side.  Rounding that to float32 is correct, since 53 >= 24 +
-    2 bits, below float32's normal range too."""
+    rounding s to float32 again lands on the wrong side only where s is
+    exactly a float32 midpoint (a midpoint nearer the exact sum than s would
+    be a nearer float64).  In float32's normal range a midpoint's float64
+    significand ends in a one and 28 zeros; below it, s is tiny (a sum of 0
+    is exact).  Only those few elements are rounded to odd first: TwoSum
+    gives the sum's rounding error, and an inexact s (its last bit is even
+    there) steps to its neighbour on the error's side.  Rounding that to
+    float32 is correct, since 53 >= 24 + 2 bits."""
     p, c = a.double() * b.double(), c.double()
     s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    inexact = err.abs() > 0  # not where s is infinite (err is NaN)
-    return torch.where(inexact & even, torch.nextafter(s, err * torch.inf), s).float()
+    out = s.float()
+    suspect = (((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000)
+               | ((s.abs() < 2.0**-125) & (s != 0)))
+    if bool(suspect.any()):
+        at = suspect.nonzero(as_tuple=True)
+        p, c, s = p.expand(s.shape)[at], c.expand(s.shape)[at], s[at]
+        bb = s - p
+        err = (p - (s - bb)) + (c - bb)
+        inexact = err.abs() > 0  # not where s is infinite (err is NaN)
+        out[at] = torch.where(inexact, torch.nextafter(s, err * torch.inf), s).float()
+    return out
 
 
 def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: Tensor | None,

@@ -1,6 +1,6 @@
-"""Delta-emitter evaluation: point / spot lights and the analytic beam-splat
-projector (port of fireflies_tpu/render/lights.py; envmap, area lights and
-the projector texture route are not ported yet).
+"""Delta-emitter evaluation: point / spot lights and the projector, as an
+analytic beam splat or a texture (port of fireflies_tpu/render/lights.py;
+envmap and area lights are not ported yet).
 
 Shading points are Vec3s of (B, N) components; per-variant emitter data
 has a leading B axis and is splatted to (B, 1).  Spot and projector
@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from fireflies_tpu_torch.render.texture import bilinear_sample, bilinear_sample_packed
 from fireflies_tpu_torch.render.types import LIGHT_SPOT, Lights, Projector
 from fireflies_tpu_torch.render.vec3 import Vec3, splat
 
@@ -76,10 +77,10 @@ def eval_light_v(lights: Lights, index: int, p: Vec3):
     return wi, dist, radiance * scale
 
 
-def eval_projector_v(projector: Projector, p: Vec3):
-    """Projector in analytic beam mode at points p: (wi, dist, rad)."""
-    if projector.beams_ndc is None or projector.texture is not None:
-        raise NotImplementedError("only the analytic beam-splat projector is ported")
+def eval_projector_v(projector: Projector, p: Vec3, tex_table: Optional[Tensor] = None):
+    """Projector at points p: (wi, dist, rad).  In texture mode the lookup
+    reads `tex_table`, pack_neighborhood_table(projector.texture), when
+    given, else the texture itself."""
     to_world = projector.to_world
     pos = splat(to_world[:, :3, 3])
     delta = pos - p
@@ -96,11 +97,20 @@ def eval_projector_v(projector: Projector, p: Vec3):
     ndc_x = vx / (safe * tan_half)
     ndc_y = vy / (safe * tan_half)
 
-    h_px, w_px = projector.beam_hw
-    g = _beam_splat_field(ndc_x, ndc_y, projector.beams_ndc, projector.beam_sigma,
-                          0.5 * w_px, 0.5 * h_px)
-    color = projector.beam_color
-    tex = Vec3(color[:, 0, None] * g, color[:, 1, None] * g, color[:, 2, None] * g)
+    if projector.beams_ndc is not None:
+        h_px, w_px = projector.beam_hw
+        g = _beam_splat_field(ndc_x, ndc_y, projector.beams_ndc, projector.beam_sigma,
+                              0.5 * w_px, 0.5 * h_px)
+        color = projector.beam_color
+        tex = Vec3(color[:, 0, None] * g, color[:, 1, None] * g, color[:, 2, None] * g)
+    else:
+        uv = torch.stack([(ndc_x + 1.0) * 0.5, (ndc_y + 1.0) * 0.5], dim=-1)
+        if tex_table is not None:
+            h, w = projector.texture.shape[-3:-1]
+            rgb = bilinear_sample_packed(tex_table, h, w, uv)
+        else:
+            rgb = bilinear_sample(projector.texture, uv)
+        tex = Vec3(rgb[..., 0], rgb[..., 1], rgb[..., 2])
 
     in_frustum = ((depth > projector.near[:, None]) & (depth < projector.far[:, None])
                   & (ndc_x.abs() <= 1.0) & (ndc_y.abs() <= 1.0))
@@ -109,12 +119,13 @@ def eval_projector_v(projector: Projector, p: Vec3):
     return wi, dist, radiance
 
 
-def total_incident_v(lights: Lights, projector: Optional[Projector], p: Vec3):
+def total_incident_v(lights: Lights, projector: Optional[Projector], p: Vec3,
+                     proj_tex_table: Optional[Tensor] = None):
     """Every delta emitter at p, in light-slot order then the projector:
     lists of (wi, dist, rad)."""
     acc = [eval_light_v(lights, i, p) for i in range(lights.count)]
     if projector is not None:
-        acc.append(eval_projector_v(projector, p))
+        acc.append(eval_projector_v(projector, p, tex_table=proj_tex_table))
     return [a[0] for a in acc], [a[1] for a in acc], [a[2] for a in acc]
 
 

@@ -2,8 +2,8 @@
 
 A wavefront integrator over a batch of scene variants: every per-ray
 tensor is (B, N).  Bounces are a Python loop with masked inactive rays;
-next-event estimation covers every delta emitter (point / spot / analytic
-projector) with reversed shadow rays on the shared-origin kernel; BSDF
+next-event estimation covers every delta emitter (point / spot / the
+projector, analytic or textured) with reversed shadow rays on the shared-origin kernel; BSDF
 importance sampling drives the bounces.  Traversal is detached and
 shading differentiable, so gradients reach the projector's beam pattern.
 
@@ -12,8 +12,8 @@ normals and material ids from the hit), delta-emitter NEE with dead-ray
 gating, the default and the tile-coherent bounce sampler
 (`coherent_bounce`), the spp loop, and the shared first vertex
 (`shared_primary`, `_film_render_shared`).  Not ported yet:
-reparameterization, `ray_chunk`, envmap and area-light NEE, textures and
-smooth normals (these raise).
+reparameterization, `ray_chunk`, envmap and area-light NEE, material
+textures and smooth normals (these raise).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from fireflies_tpu_torch.render import lights as lights_mod
 from fireflies_tpu_torch.render.cuda.intersect_kernel import RAY_TILE
 from fireflies_tpu_torch.render.intersect import closest_hit, occluded_any
 from fireflies_tpu_torch.render.rays import camera_rays_tiled, uniform, unpermute_rows
+from fireflies_tpu_torch.render.texture import pack_neighborhood_table
 from fireflies_tpu_torch.render.types import RenderConfig, RenderScene
 from fireflies_tpu_torch.render.vec3 import Vec3, from_array, splat
 
@@ -109,6 +110,11 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
     o_v, d_v = from_array(o), from_array(d)
     geo = scene.geometry
     positions = lights_mod.emitter_positions(scene.lights, scene.projector)
+    # The projector texture's 2x2-neighbourhood table, packed once for every
+    # bounce's lookups: one row read a lookup in place of four texels.
+    proj_table = (pack_neighborhood_table(scene.projector.texture)
+                  if scene.projector is not None and scene.projector.texture is not None
+                  else None)
     start_bounce = 0
     if resume is not None:
         o_v, d_v = resume["o_v"], resume["d_v"]
@@ -147,7 +153,7 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
 
         # ---- next-event estimation over every delta emitter --------------
         wi_list, _dist_list, rad_list = lights_mod.total_incident_v(
-            scene.lights, scene.projector, p)
+            scene.lights, scene.projector, p, proj_tex_table=proj_table)
         for li, (wi_l, rad_l) in enumerate(zip(wi_list, rad_list)):
             lit = (rad_l.max_component() > 0.0) & active
             side_l = torch.where(n.dot(wi_l) >= 0, 1.0, -1.0)

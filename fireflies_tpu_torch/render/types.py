@@ -38,19 +38,22 @@ class Camera(_Replace):
 
 @dataclasses.dataclass
 class Projector(_Replace):
-    """Textured spotlight — the structured-light source.
+    """Textured spotlight — the structured-light source, in one of two modes.
 
-    Only the analytic beam mode is ported: `beams_ndc` (B, K, 2) projector-NDC
-    beam coordinates evaluated as the continuous Gaussian splat field at each
-    shading point, `beam_sigma` (B,) in squared-pixel units of the static
-    `beam_hw` (H, W), and `beam_color` (B, 3).
+    Texture mode (`beams_ndc` None): `texture` is an (H, W, 3) image shared
+    by the batch or a (B, H, W, 3) one a variant, looked up bilinearly at
+    each shading point's projector uv (u right, v up).  Analytic beam mode:
+    `beams_ndc` (B, K, 2) projector-NDC beam coordinates evaluated as the
+    continuous Gaussian splat field at each shading point, `beam_sigma` (B,)
+    in squared-pixel units of the static `beam_hw` (H, W), and `beam_color`
+    (B, 3); `texture` is None.
     """
 
     to_world: Tensor  # (B, 4, 4)
     fov: Tensor  # (B,)
     near: Tensor
     far: Tensor
-    texture: Optional[Tensor]  # not ported: must be None
+    texture: Optional[Tensor]  # (H, W, 3) or (B, H, W, 3); None in beam mode
     scale: Tensor  # (B,)
     aperture: Optional[Tensor] = None  # not ported: must be None
     beams_ndc: Optional[Tensor] = None

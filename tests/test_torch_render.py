@@ -81,11 +81,27 @@ def _tc_image(tc_assemble, beams, bounces=1):
                             primary_origin=scene.camera.to_world[:, :3, 3])[0]
 
 
-def test_deterministic_render_matches(setup):
+@pytest.fixture(scope="module")
+def one_bounce(setup):
+    """The deterministic one-bounce render and the beam gradient of its mean
+    image, from each package: (img_j, g_j, img_t, g_t); one JAX compile and
+    one port backward for both."""
     jx_assemble, tc_assemble, beams = setup
-    img_j = np.asarray(jax.jit(lambda b: _jx_image(jx_assemble, b))(jnp.asarray(beams)))
-    with torch.no_grad():
-        img_t = _tc_image(tc_assemble, torch.as_tensor(beams)).numpy()
+
+    def image_and_grad(b):
+        img, vjp = jax.vjp(lambda x: _jx_image(jx_assemble, x), b)
+        return img, vjp(jnp.full_like(img, 1.0 / img.size))[0]
+
+    img_j, g_j = jax.jit(image_and_grad)(jnp.asarray(beams))
+    b_t = torch.as_tensor(beams).requires_grad_(True)
+    img_t = _tc_image(tc_assemble, b_t)
+    img_t.mean().backward()
+    return np.asarray(img_j), np.asarray(g_j), img_t.detach().numpy(), b_t.grad.numpy()
+
+
+def test_deterministic_render_matches(setup, one_bounce):
+    jx_assemble, tc_assemble, beams = setup
+    img_j, _, img_t, _ = one_bounce
     assert img_t.shape == img_j.shape == (W * H, 3)
     assert np.isfinite(img_t).all() and img_t.max() > 0
     bad = np.abs(img_t - img_j).max(axis=1) > 1e-4 * np.abs(img_j).max()
@@ -104,13 +120,8 @@ def test_deterministic_render_matches(setup):
         np.testing.assert_allclose(t_t, t_j, rtol=1e-5)
 
 
-def test_beam_gradient_matches(setup):
-    jx_assemble, tc_assemble, beams = setup
-    g_j = np.asarray(jax.jit(jax.grad(
-        lambda b: jnp.mean(_jx_image(jx_assemble, b))))(jnp.asarray(beams)))
-    b_t = torch.as_tensor(beams).requires_grad_(True)
-    _tc_image(tc_assemble, b_t).mean().backward()
-    g_t = b_t.grad.numpy()
+def test_beam_gradient_matches(one_bounce):
+    _, g_j, _, g_t = one_bounce
     assert np.abs(g_j).max() > 0
     rel = np.linalg.norm(g_t - g_j) / np.linalg.norm(g_j)
     assert rel <= 1e-3, rel

@@ -106,7 +106,12 @@ def _tc_image(tc_assemble, beams):
 def test_streamed_route_render_and_gradient_match(setup, monkeypatch):
     _route(monkeypatch, "streamed")
     jx_assemble, tc_assemble, beams = setup
-    img_j = np.asarray(jax.jit(lambda b: _jx_image(jx_assemble, b))(jnp.asarray(beams)))
+
+    def image_and_grad(b):  # one compile for both
+        img, vjp = jax.vjp(lambda x: _jx_image(jx_assemble, x), b)
+        return img, vjp(jnp.full_like(img, 1.0 / img.size))[0]
+
+    img_j, g_j = (np.asarray(x) for x in jax.jit(image_and_grad)(jnp.asarray(beams)))
     b_t = torch.as_tensor(beams).requires_grad_(True)
     img_t = _tc_image(tc_assemble, b_t)
     img_t.mean().backward()
@@ -115,8 +120,6 @@ def test_streamed_route_render_and_gradient_match(setup, monkeypatch):
     bad = np.abs(img_t - img_j).max(axis=1) > 1e-4 * np.abs(img_j).max()
     assert bad.mean() <= 1e-3, f"{bad.sum()} of {bad.size} pixels differ"
 
-    g_j = np.asarray(jax.jit(jax.grad(
-        lambda b: jnp.mean(_jx_image(jx_assemble, b))))(jnp.asarray(beams)))
     g_t = b_t.grad.numpy()
     assert np.abs(g_j).max() > 0
     rel = np.linalg.norm(g_t - g_j) / np.linalg.norm(g_j)
@@ -141,9 +144,11 @@ def test_shared_coherent_mean_radiance_agrees(setup, jax_means, monkeypatch, rou
 def test_shared_primary_one_bounce_equals_unshared(setup, monkeypatch):
     _route(monkeypatch, "streamed")
     _, tc_assemble, beams = setup
+    # One 128x16 tile: the equality holds pixel by pixel, whatever the film.
     with torch.no_grad():
         scene_t = tc_assemble(torch.as_tensor(beams), copies=2)
         imgs = [tc_pt.render_rgb(scene_t, main_path.generators([7, 8], "cpu"),
-                                 _cfg("torch", 1, shared=shared)) for shared in (False, True)]
-    assert imgs[0].shape == (2, H, W, 3) and imgs[0].max() > 0
+                                 _cfg("torch", 1, shared=shared).replace(height=16))
+                for shared in (False, True)]
+    assert imgs[0].shape == (2, 16, W, 3) and imgs[0].max() > 0
     assert torch.equal(imgs[0], imgs[1])

@@ -25,7 +25,9 @@ torch.set_num_threads(2)
 
 def test_pattern_step_gradient_is_finite():
     bridge, randomize, beams = main_path.build("cpu")
-    loss, grad = main_path.pattern_step(bridge, randomize, beams, [0, 1], _cfg("torch", 2))
+    # One 128x16 tile: finiteness does not depend on the film's size.
+    loss, grad = main_path.pattern_step(bridge, randomize, beams, [0, 1],
+                                        _cfg("torch", 2).replace(height=16))
     assert grad.shape == (144, 3)
     assert torch.isfinite(loss) and torch.isfinite(grad).all()
     assert grad.abs().max() > 0
