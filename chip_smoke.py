@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Five paths, each a batch of 16 randomized vocalfold variants at 512x512
-with 2 bounces through `main_path.render_batch` / `pattern_step`
-(`main_path.SHAPES`):
+Seven paths, each a batch of 16 randomized vocalfold variants at 512x512
+with 2 bounces through `main_path.render_batch` / `pattern_step` /
+`pose_step` (`main_path.SHAPES`):
   * main: 1440 faces, spp 1 (the reference benchmark's default; kernels B1
     for camera and shadow rays, B3 for bounce rays);
   * reference shape: 11538 faces, spp 4, coherent bounce, shared primary
@@ -13,7 +13,13 @@ with 2 bounces through `main_path.render_batch` / `pattern_step`
   * mid-sized: 5288 faces, spp 1 (B1, and B5 for bounce rays);
   * main_unculled and reference_unculled: main and the reference shape with
     tile culling off (`RenderConfig.tile_cull=False`, the reference's
-    FF_NO_TILE_CULL=1): B6 and B3; B7s and B7g with the attribute gather.
+    FF_NO_TILE_CULL=1): B6 and B3; B7s and B7g with the attribute gather;
+  * geometry and reference_geometry: the differentiable face-table
+    attribute route (`static_geometry=False`: hit attributes re-derived from
+    one packed row per face, so gradients reach the vertices): main with
+    smooth vertex normals (B1 and B3), and bench.py's static_geom=0 row,
+    the reference shape with coherent bounce and without the shared
+    primary (B2 and B4 as closest hit without kernel-emitted attributes).
 The kernels' bodies (`body` in the kernels line): B1, B2, B6 and B7s share
 `csrc/intersect_shared.cuh` (staged batches, a slab vote per warp), B3 and
 B5 `csrc/intersect_general.cuh` (staged batches, each ray tested against
@@ -42,13 +48,21 @@ Phases (each raises on failure, so any failure exits non-zero):
      11.5k faces);
   4. reference (main path): the CUDA path against the CPU path (plain
      versions, held against the JAX package by the tests) on a small
-     deterministic render;
+     deterministic render; on the geometry path the face-table render and
+     its gradient with respect to a translation of the vertices;
   5. forward: `render_batch` with every launch counter set to 0 just before
      it and read just after: the path's kernels must have launched and no
      other; then renders/s (median of 5 timed batches);
   6. pattern step (one batched render of the 16 variants and one
      backward): loss and the (144, 3) beam gradient, seconds per step and
-     peak device memory;
+     peak device memory; on the geometry path the pose step instead (the
+     path-traced L2 plus a 256x256 soft-silhouette L2 against targets
+     rendered once, and its (3,) translation gradient), and none on
+     reference_geometry, whose step the bench phase measures;
+  the geometry paths replay without the any-hit replays and without timing
+  the plain versions, and reference_geometry only its closest-hit launches
+  (B2 and B4 without emitted attributes; their any-hit launches are the
+  reference path's);
   on the main shape, after its pattern step:
      texture: phases 4-6 with the texture projector (the counted forward's
      launches B1 and B3 and no other);
@@ -71,9 +85,10 @@ Phases (each raises on failure, so any failure exits non-zero):
      against B6's on the same rays; times and bounds.
   9. bench: `bench.measure` (diff-renders/s: batch x repeats over the best
      window's wall time, after one warm-up step) for the headline row, the
-     texture row and the reference shape (resolution 75, spp 4, coherent
-     bounce, shared primary), each with few repeats and trials; one JSON
-     line each.
+     texture row, the reference shape (resolution 75, spp 4, coherent
+     bounce, shared primary) and the face-table route's rows (static_geom=0,
+     smooth=1, pose_soft), each with few repeats and trials; one JSON line
+     each.
 Then one JSON line with the kernels (each with its fused operations per
 tested pair, `ops_per_pair`, and for the nine intersection kernels
 `least_pairs` and `least_bound_ms`; for X1 beside them its tensor-core
@@ -237,16 +252,19 @@ def _first(rec: dict, n: int) -> dict:
     return {k: v[:n].contiguous() if isinstance(v, torch.Tensor) else v for k, v in rec.items()}
 
 
-def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None) -> dict:
+def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None,
+                 modes=("closest", "any"), replay_any: bool = True,
+                 time_plain: bool = True) -> dict:
     """Each kernel against its plain version on the inputs a path gives it:
     one forward batch records every launch's inputs, and each (or, with
-    `first_only`, the first of each kernel and mode) is replayed through
-    the kernel and the plain version, the latter on the first
-    `plain_variants` variants when given.  Each closest-hit launch is
-    replayed as any-hit too, since the scene casts no shadow where an
-    emitter lights it and a path's own any-hit launches find few or no
-    blockers.  Kernel times exclude building the tile lists, which are
-    timed on their own (`lists_ms`)."""
+    `first_only`, the first of each kernel and mode) of `modes` is replayed
+    through the kernel and the plain version, the latter on the first
+    `plain_variants` variants when given.  With `replay_any` each
+    closest-hit launch is replayed as any-hit too, since the scene casts no
+    shadow where an emitter lights it and a path's own any-hit launches
+    find few or no blockers.  Kernel times exclude building the tile lists,
+    which are timed on their own (`lists_ms`); the plain version is timed
+    only with `time_plain`."""
     import torch  # noqa: PLC0415
 
     from fireflies_tpu_torch.perf_probe import cuda_ms  # noqa: PLC0415
@@ -267,11 +285,11 @@ def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None)
         cases, seen = [], set()
         for i, rec in enumerate(recorded):
             mode = "any" if rec["any_hit"] else "closest"
-            if first_only and mode in seen:
+            if mode not in modes or (first_only and mode in seen):
                 continue
             seen.add(mode)
             cases.append((f"{path}/{name}/{mode}#{i}", rec, False))
-            if not rec["any_hit"]:
+            if replay_any and not rec["any_hit"]:
                 cases.append((f"{path}/{name}/{mode}#{i}/as-any",
                               {**rec, "any_hit": True, **({"emit_attrs": False}
                                                           if "emit_attrs" in rec else {})}, True))
@@ -283,13 +301,15 @@ def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None)
             res.update(kernel=name, path=path, any_hit=rec["any_hit"], replayed=replayed,
                        plain_variants=nv, variants=rec["tmax_tiles"].shape[0])
             res["ms"] = cuda_ms(lambda rec=rec: kernel_fn(**rec), 20)
-            res["plain_ms"] = cuda_ms(lambda rec=rec_p: plain_fn(**rec), 2)
+            res["plain_ms"] = cuda_ms(lambda rec=rec_p: plain_fn(**rec), 2) if time_plain else None
             tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
             kernel_fn(**rec, tested=tested)
             res.update(bound(name, rec, len(out_k), tested))
             res.update(least_bound(name, rec, out_k))
-            line = (f"  {case}: kernel {res['ms']:.4f} ms ({res['variants']} variants), plain "
-                    f"{res['plain_ms']:.4f} ms ({nv} variants), bound {res['bound_ms']:.4f} ms "
+            plain = (f"plain {res['plain_ms']:.4f} ms ({nv} variants)" if time_plain
+                     else f"plain not timed ({nv} variants compared)")
+            line = (f"  {case}: kernel {res['ms']:.4f} ms ({res['variants']} variants), {plain}, "
+                    f"bound {res['bound_ms']:.4f} ms "
                     f"({res['bound_by']}; {res['pairs']:.4g} pairs tested of "
                     f"{res['listed_pairs']:.4g} listed; bound / kernel "
                     f"{res['bound_ms'] / res['ms']:.3f}); least {res['least_pairs']:.4g} pairs, "
@@ -303,32 +323,81 @@ def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None)
     return results
 
 
-def reference_phase(bridge, randomize, beams, dev, analytic: bool = True) -> None:
+def reference_phase(bridge, randomize, beams, dev, analytic: bool = True,
+                    face_table: bool = False) -> None:
     """A small deterministic render (pixel-centre rays, one bounce) through
     the CUDA kernels against the same render through the plain versions on
     the CPU: within 1e-4 of the image max on >= 99.9% of pixels.  With
-    `analytic=False` the projector is the texture route's."""
+    `analytic=False` the projector is the texture route's.  With
+    `face_table` the render takes the face-table attribute route
+    (`static_geometry=False`), and the gradient of its mean image with
+    respect to a (3,) translation of every vertex must agree within 1e-3
+    relative L2 (the face table's row gather adds back atomically on the
+    card)."""
     import torch  # noqa: PLC0415
 
     from fireflies_tpu_torch import main_path  # noqa: PLC0415
     from fireflies_tpu_torch.render import RenderConfig, pathtracer, rays  # noqa: PLC0415
 
-    cfg = RenderConfig(width=128, height=32, spp=1, max_bounces=1, static_geometry=True)
-    imgs = []
+    cfg = RenderConfig(width=128, height=32, spp=1, max_bounces=1,
+                       static_geometry=not face_table)
+    imgs, grads = [], []
     for device in (dev, torch.device("cpu")):
         params = randomize(torch.Generator(device=dev).manual_seed(7), 0)
         params = {k: v.to(device) for k, v in params.items()}
         params.update(main_path.projector_params(beams.to(device), analytic))
         scene = bridge.assemble(params)
+        delta = torch.zeros(3, device=device, requires_grad=face_table)
+        geo = scene.geometry
+        scene = scene.replace(geometry=geo.replace(vertices=geo.vertices + delta))
         o, d, _ = rays.camera_rays_tiled(scene.camera, cfg.width, cfg.height)
-        with torch.no_grad():
-            imgs.append(pathtracer.trace_rays(scene, o, d, None, cfg,
-                                              primary_origin=scene.camera.to_world[:, :3, 3]))
-    img_k, img_p = imgs[0].cpu(), imgs[1]
+        with torch.set_grad_enabled(face_table):
+            img = pathtracer.trace_rays(scene, o, d, None, cfg,
+                                        primary_origin=scene.camera.to_world[:, :3, 3])
+        if face_table:
+            img.mean().backward()
+            grads.append(delta.grad.cpu())
+        imgs.append(img.detach().cpu())
+    img_k, img_p = imgs
     bad = ((img_k - img_p).abs().amax(-1) > 1e-4 * img_p.abs().max()).float().mean().item()
-    log(f"  CUDA vs CPU plain path (128x32, 1 bounce): {bad:.2e} of pixels beyond 1e-4 of max")
+    log(f"  CUDA vs CPU plain path (128x32, 1 bounce{', face table' if face_table else ''}): "
+        f"{bad:.2e} of pixels beyond 1e-4 of max")
     if not (torch.isfinite(img_k).all() and img_p.max() > 0 and bad <= 1e-3):
         raise AssertionError("CUDA render disagrees with the plain-version render")
+    if face_table:
+        g_k, g_p = grads
+        rel = float((g_k - g_p).norm() / g_p.norm())
+        log(f"  translation gradient {g_k.tolist()} against {g_p.tolist()}, relative L2 "
+            f"{rel:.3g}")
+        if not (torch.isfinite(g_k).all() and g_p.abs().max() > 0 and rel <= 1e-3):
+            raise AssertionError("CUDA translation gradient disagrees with the plain-version one")
+
+
+def pose_phase(tag, bridge, randomize, beams, seeds, cfg, dev) -> None:
+    """`main_path.pose_step` (one batched render of every variant, its soft
+    silhouettes at main_path.SOFT_SIZE^2 and one backward) against targets
+    rendered once: after one untimed step, the loss and a finite, nonzero
+    (3,) translation gradient, s/step and peak device memory."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    targets = main_path.pose_targets(bridge, randomize, beams, seeds, cfg,
+                                     render_seeds=[s + len(seeds) for s in seeds])
+    delta = torch.zeros(3, device=dev)
+    main_path.pose_step(bridge, randomize, beams, delta, seeds, targets, cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grad = main_path.pose_step(bridge, randomize, beams, delta, seeds, targets, cfg)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[{tag}/pose_step] loss {loss.item():.6g} grad {grad.tolist()} {step_s:.4f} s/step, "
+        f"peak {peak:.3f} GiB")
+    if (tuple(grad.shape) != (3,) or not torch.isfinite(grad).all() or grad.abs().max() == 0
+            or not torch.isfinite(loss)):
+        raise AssertionError("translation gradient is not a finite nonzero (3,) tensor")
 
 
 def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected,
@@ -425,11 +494,15 @@ def c2_phase(bridge, randomize, beams, seeds, cfg) -> None:
 
 
 def bench_phase() -> list[dict]:
-    """`bench.measure` for the headline row, the texture row and the
-    reference shape, with few repeats and trials; prints each line."""
+    """`bench.measure` for the headline row, the texture row, the reference
+    shape, and the face-table route's rows (the reference shape unshared
+    with static_geom=0, smooth=1, and grad_mode="pose_soft"), with few
+    repeats and trials; prints each line."""
     from fireflies_tpu_torch import bench  # noqa: PLC0415
 
-    rows = [dict(), dict(analytic=0), dict(resolution=75, spp=4, coherent=1, shared=1)]
+    rows = [dict(), dict(analytic=0), dict(resolution=75, spp=4, coherent=1, shared=1),
+            dict(resolution=75, spp=4, coherent=1, static_geom=0), dict(smooth=1),
+            dict(grad_mode="pose_soft")]
     lines = []
     for row in rows:
         t0 = time.perf_counter()
@@ -685,36 +758,48 @@ def main() -> int:
     seeds = list(range(BATCH))
     kres, launches, kernel_path = {}, {}, {}
     # (shape in main_path.SHAPES, kernels of the path, replay only the first
-    # launch of each (kernel, mode), plain versions' variants)
+    # launch of each (kernel, mode), plain versions' variants, kernel_phase
+    # options)
+    new_route = dict(replay_any=False, time_plain=False)
     paths = [
-        ("main", (B1, B3), False, None),
-        ("reference", (B2, B4), True, 2),
-        ("mid", (B1, B5), True, 2),
-        ("main_unculled", (B6, B3), True, 2),
-        ("reference_unculled", (B7S, B7G), True, 2),
+        ("main", (B1, B3), False, None, {}),
+        ("reference", (B2, B4), True, 2, {}),
+        ("mid", (B1, B5), True, 2, {}),
+        ("main_unculled", (B6, B3), True, 2, {}),
+        ("reference_unculled", (B7S, B7G), True, 2, {}),
+        ("geometry", (B1, B3), False, 2, new_route),
+        ("reference_geometry", (B2, B4), True, 2, dict(new_route, modes=("closest",))),
     ]
-    for tag, expected, first_only, plain_nv in paths:
+    for tag, expected, first_only, plain_nv, options in paths:
         t_path = time.perf_counter()
-        resolution, shape_cfg = main_path.SHAPES[tag]
-        cfg = main_path.bench_config(size=SIZE, **shape_cfg)
-        bridge, randomize, beams = main_path.build(dev, resolution=resolution)
+        bridge, randomize, beams, cfg = main_path.build_shape(tag, dev, SIZE)
+        resolution = main_path.SHAPES[tag][0]
         log(f"[{tag}/kernels] {BATCH} variants x {SIZE}x{SIZE} rays, spp {cfg.spp}, "
             f"{len(bridge._faces)} faces (vocalfold resolution {resolution}), tile_cull "
-            f"{cfg.tile_cull}" + (f"; first launch of each (kernel, mode) only, plain versions "
-                                  f"on the first {plain_nv} variants" if first_only
-                                  else "; every launch"))
+            f"{cfg.tile_cull}, static_geometry {cfg.static_geometry}, smooth normals "
+            f"{bridge._smooth_mask is not None}"
+            + ("; first launch of each (kernel, mode) only" if first_only else "; every launch")
+            + (f", plain versions on the first {plain_nv} variants" if plain_nv else "")
+            + (f"; {options}" if options else ""))
         res = kernel_phase(tag, lambda: main_path.render_batch(bridge, randomize, beams, seeds,
-                                                               cfg), first_only, plain_nv)
+                                                               cfg), first_only, plain_nv,
+                           **options)
         kres.update(res)
         if tag == "main":
             log("[main/reference]")
             reference_phase(bridge, randomize, beams, dev)
+        if tag == "geometry":
+            log("[geometry/reference]")
+            reference_phase(bridge, randomize, beams, dev, face_table=True)
         counts = forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected)
         for name in expected:
             if name not in kernel_path:
                 kernel_path[name] = tag
                 launches[name] = counts[name]
-        pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
+        if tag == "geometry":
+            pose_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
+        elif tag != "reference_geometry":  # bench_phase runs its step
+            pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
         log(f"[{tag}] {time.perf_counter() - t_path:.1f} s")
         if tag == "main":
             t_tex = time.perf_counter()
@@ -761,6 +846,16 @@ def main() -> int:
         }
         if "lists_ms" in closest:
             entry["tile_lists_ms"] = closest["lists_ms"]
+        # The face-table route's launches: B2 and B4 closest-hit without
+        # emitted attributes, B1 and B3 with smooth normals.
+        for path in ("geometry", "reference_geometry"):
+            rows = [r for r in kres.values() if r["kernel"] == name and r["path"] == path]
+            if rows:
+                entry[path] = {"cases": len(rows),
+                               "max_abs_err": max(r["max_abs_err"] for r in rows),
+                               "mismatched": sum(r["mismatched"] for r in rows),
+                               "closest_ms": next((r["ms"] for r in rows if not r["any_hit"]),
+                                                  None)}
         kernels.append(entry)
     kernels += [x1, x2]
     over = [k["name"] for k in kernels if k["bound_ms"] > k["ms"]]

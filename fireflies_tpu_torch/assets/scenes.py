@@ -39,15 +39,17 @@ def hello_world(randomize_rotation: bool = True):
     return scene, {"camera_fov": 45.0, "background": (0.0, 0.0, 0.0)}
 
 
-def vocalfold(resolution: int = 24, n_anim_frames: int = 8, with_projector: bool = True):
+def vocalfold(resolution: int = 24, n_anim_frames: int = 8, with_projector: bool = True,
+              smooth: bool = False):
     """The structured-light laryngoscopy scene: camera above the folds
     looking down -Z, a spot light beside it, a laser projector offset by a
-    small baseline."""
+    small baseline.  `smooth` shades both meshes with interpolated vertex
+    normals (the reference's OBJ default); flat is the default."""
     scene = ff.Scene()
 
     vf_verts, vf_faces, vf_uvs = procedural.make_vocalfold(resolution=resolution)
     centroid = vf_verts.mean(0)
-    vf = ff.Mesh("mesh-Vocalfold", vf_verts - centroid, vf_faces, vf_uvs)
+    vf = ff.Mesh("mesh-Vocalfold", vf_verts - centroid, vf_faces, vf_uvs, smooth=smooth)
     vf.set_centroid(centroid)
     frames = procedural.vocalfold_animation_frames(n_anim_frames, resolution=resolution)
     vf.add_animation(frames - centroid, frames - centroid)
@@ -58,7 +60,7 @@ def vocalfold(resolution: int = 24, n_anim_frames: int = 8, with_projector: bool
     )
     tube_world = np.eye(4, dtype=np.float32)
     tube_world[:3, 3] = [0.0, 0.0, 2.0]
-    larynx = ff.Mesh("mesh-Larynx", tube_verts, tube_faces, tube_uvs)
+    larynx = ff.Mesh("mesh-Larynx", tube_verts, tube_faces, tube_uvs, smooth=smooth)
     larynx.set_world(tube_world)
     scene.add_mesh(larynx, material="mat-Tissue")
 

@@ -17,6 +17,14 @@ window is the headline, the spread of all windows stands beside it.
 Two projector routes: the analytic beam splat (`analytic=1`, the headline)
 and the texture route (`analytic=0`), whose beams are rasterized once a
 step into a 256x256 texture that every variant's projector looks up.
+`static_geom=0` and `smooth=1` take the differentiable face-table
+attribute route (the latter with interpolated vertex normals).
+
+`grad_mode="pose_soft"` is the counterpart of `bench.py::_measure_pose`: a
+step is `main_path.pose_step`, the gradient with respect to a (3,) mesh
+translation of the path-traced L2 plus a 256x256 soft-silhouette L2
+against targets rendered once, untimed, over a fixed batch of variants;
+windows chain delta = delta + 1e-20 * grad.
 
 The measurement runs on the card unless the caller passes device="cpu"
 (`--device cpu`), which the tests do at a tiny size; the result names its
@@ -47,74 +55,123 @@ def step_seeds(trial: int, i: int, batch: int) -> list[int]:
     return [((trial + 1) * 1000 + i) * batch + j for j in range(batch)]
 
 
+POSE_VARIANT_SEED = 10**6  # the fixed variants of a pose measurement: seeds from here
+POSE_TARGET_SEED = 2 * 10**6  # the draws of its targets' renders
+
+
+def _windows(step, x0: torch.Tensor, repeats: int, trials: int) -> list[float]:
+    """After one untimed warm-up step, `trials` windows of `repeats` steps,
+    each chained x = step(x, trial, i) from x0 and ended by a host readback
+    of x, which must be finite; the windows' wall seconds."""
+    float(step(x0, -1, 0).sum())  # warm-up, waited for
+    trial_dts = []
+    for trial in range(trials):
+        t0 = time.perf_counter()
+        x = x0
+        for i in range(repeats):
+            x = step(x, trial, i)
+        checksum = float(x.sum())  # the host readback ends the window
+        dt = time.perf_counter() - t0
+        if not math.isfinite(checksum):
+            raise FloatingPointError(f"trial {trial}: the chained step input is not finite")
+        trial_dts.append(dt)
+    return trial_dts
+
+
 def measure(size: int = 512, spp: int = 1, bounces: int = 2, repeats: int = 20,
             resolution: int = 24, batch: int = 16, trials: int = 3, analytic: int = 1,
-            coherent: int = 0, shared: int = 0, tile_cull: int = 1,
-            device="cuda") -> dict:
-    """One throughput measurement of the pattern-optimization step; the
-    result line as a dict (metric, value, unit, detail)."""
+            coherent: int = 0, shared: int = 0, tile_cull: int = 1, static_geom: int = 1,
+            smooth: int = 0, ray_chunk: int = 0, grad_mode: str = "beams",
+            soft_size: int = main_path.SOFT_SIZE, device="cuda") -> dict:
+    """One throughput measurement of the pattern-optimization step
+    (`grad_mode="beams"`) or of the pose step (`"pose_soft"`: the gradient
+    with respect to a mesh translation of the path-traced L2 plus a
+    soft_size x soft_size soft-silhouette L2, on the face-table route, with
+    the analytic projector); the result line as a dict (metric, value,
+    unit, detail)."""
+    if grad_mode not in ("beams", "pose_soft"):
+        raise NotImplementedError(f"grad_mode={grad_mode!r} is not ported")
+    pose = grad_mode == "pose_soft"
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     if on_card and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to measure on the CPU")
-    bridge, randomize, rays0 = main_path.build(dev, resolution=resolution)
+    bridge, randomize, rays0 = main_path.build(dev, resolution=resolution, smooth=bool(smooth))
     cfg = main_path.bench_config(size=size, spp=spp, bounces=bounces,
                                  coherent_bounce=bool(coherent), shared_primary=bool(shared),
-                                 tile_cull=bool(tile_cull))
+                                 tile_cull=bool(tile_cull),
+                                 static_geometry=bool(static_geom) and not pose)
+    cfg = cfg.replace(ray_chunk=ray_chunk)
     n_faces = len(bridge._faces)
+    analytic = analytic or pose
+    losses = []
 
-    def step(rays, trial: int, i: int):
-        _, grad = main_path.pattern_step(bridge, randomize, rays, step_seeds(trial, i, batch),
-                                         cfg, analytic=bool(analytic))
-        return rays + 1e-20 * grad
+    if pose:
+        seeds = [POSE_VARIANT_SEED + j for j in range(batch)]
+        targets = main_path.pose_targets(bridge, randomize, rays0, seeds, cfg,
+                                         [POSE_TARGET_SEED + j for j in range(batch)], soft_size)
+
+        def step(delta, trial: int, i: int):
+            loss, grad = main_path.pose_step(bridge, randomize, rays0, delta, seeds, targets, cfg,
+                                             soft_size, render_seeds=step_seeds(trial, i, batch))
+            losses.append(loss)
+            return delta + 1e-20 * grad
+
+        x0 = torch.zeros(3, device=dev)
+    else:
+        def step(rays, trial: int, i: int):
+            _, grad = main_path.pattern_step(bridge, randomize, rays,
+                                             step_seeds(trial, i, batch), cfg,
+                                             analytic=bool(analytic))
+            return rays + 1e-20 * grad
+
+        x0 = rays0
 
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    float(step(rays0, -1, 0).sum())  # warm-up, waited for
-    trial_dts = []
-    for trial in range(trials):
-        t0 = time.perf_counter()
-        rays = rays0
-        for i in range(repeats):
-            rays = step(rays, trial, i)
-        checksum = float(rays.sum())  # the host readback ends the window
-        dt = time.perf_counter() - t0
-        if not math.isfinite(checksum):
-            raise FloatingPointError(f"trial {trial}: the chained beam directions are not finite")
-        trial_dts.append(dt)
+    trial_dts = _windows(step, x0, repeats, trials)
     dt = min(trial_dts)
     per_trial = sorted(repeats * batch / t for t in trial_dts)
+    detail = {
+        "faces": n_faces, "spp": spp, "bounces": bounces, "batch": batch,
+        "repeats": repeats, "size": size,
+        "route": "analytic-beam-splat" if analytic else "texture",
+        "static_geometry": cfg.static_geometry,
+        "shared_primary": cfg.shared_primary,
+        "tile_cull": cfg.tile_cull,
+        "smooth": bool(smooth),
+        "ray_chunk": cfg.ray_chunk,
+        "grad_mode": grad_mode,
+        "optim_iters_per_sec": round(repeats / dt, 3),
+        "renders_per_sec_dispersion": {
+            "min": round(per_trial[0], 3),
+            "median": round(statistics.median(per_trial), 3),
+            "max": round(per_trial[-1], 3),
+            "trials": len(per_trial),
+        },
+        "peak_device_memory_gib": (round(torch.cuda.max_memory_allocated(dev) / 2**30, 3)
+                                   if on_card else None),
+        "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
+        "card": nvidia_smi() if on_card else None,
+    }
+    if pose:
+        detail.update(soft_size=soft_size, loss=float(losses[-1]))
     return {
         "metric": (
             f"{size}x{size} diff-renders/sec/chip "
             f"(vocalfold {n_faces} faces, spp={spp}, bounces={bounces}"
+            + (", smooth" if smooth else "")
             + (", coherent-bounce" if cfg.coherent_bounce else "")
-            + ", static-geometry"
-            + (", shared-primary" if cfg.shared_primary and spp > 1 else "")
+            + (", static-geometry" if cfg.static_geometry else ", diff-attrs")
+            + (", shared-primary" if cfg.shared_primary and spp > 1 and not ray_chunk else "")
+            + (f", ray-chunk {ray_chunk}" if ray_chunk else "")
             + ("" if cfg.tile_cull else ", no-tile-cull")
+            + (f", pose-grad soft mask{soft_size}" if pose else "")
             + (", analytic-projector" if analytic else "") + ")"
         ),
         "value": round(repeats * batch / dt, 3),
         "unit": "renders/sec/chip",
-        "detail": {
-            "faces": n_faces, "spp": spp, "bounces": bounces, "batch": batch,
-            "repeats": repeats, "size": size,
-            "route": "analytic-beam-splat" if analytic else "texture",
-            "static_geometry": cfg.static_geometry,
-            "shared_primary": cfg.shared_primary,
-            "tile_cull": cfg.tile_cull,
-            "optim_iters_per_sec": round(repeats / dt, 3),
-            "renders_per_sec_dispersion": {
-                "min": round(per_trial[0], 3),
-                "median": round(statistics.median(per_trial), 3),
-                "max": round(per_trial[-1], 3),
-                "trials": len(per_trial),
-            },
-            "peak_device_memory_gib": (round(torch.cuda.max_memory_allocated(dev) / 2**30, 3)
-                                       if on_card else None),
-            "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
-            "card": nvidia_smi() if on_card else None,
-        },
+        "detail": detail,
     }
 
 
@@ -148,13 +205,9 @@ VARIANTS = [
 
 def refusal(row: dict) -> str | None:
     """Why the port cannot run a VARIANTS row yet, or None."""
-    if row.get("static_geom", 1) == 0:
-        return "static_geometry=False (the differentiable face-table attribute route) is not ported"
-    if row.get("smooth", 0):
-        return "smooth vertex normals are not ported"
-    if row.get("grad_mode", "beams") != "beams":
-        return (f"grad_mode={row['grad_mode']} (geometry gradients: static_geometry=False, "
-                "soft silhouettes, reparameterization) is not ported")
+    if row.get("grad_mode", "beams") not in ("beams", "pose_soft"):
+        return (f"grad_mode={row['grad_mode']} (warped-area reparameterization, "
+                "RenderConfig.reparam) is not ported")
     if row.get("datagen", 0):
         return "the dataset farm (datagen) is not ported"
     return None
@@ -189,7 +242,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     for name, p in inspect.signature(measure).parameters.items():
         if name != "device":
-            ap.add_argument("--" + name.replace("_", "-"), dest=name, type=int, default=p.default)
+            ap.add_argument("--" + name.replace("_", "-"), dest=name, type=type(p.default),
+                            default=p.default)
     args = vars(ap.parse_args(argv))
     if args.pop("variants"):
         return 1 if run_variants(args["device"]) else 0

@@ -57,7 +57,12 @@ class Mesh(Transformable):
     # -- geometry access ----------------------------------------------------------
 
     def smooth(self) -> bool:
+        """True when shading interpolates area-weighted vertex normals
+        (Phong), else the mesh is flat-shaded."""
         return self._smooth
+
+    def set_smooth(self, smooth: bool = True) -> None:
+        self._smooth = bool(smooth)
 
     def faces(self) -> Optional[np.ndarray]:
         return self._faces

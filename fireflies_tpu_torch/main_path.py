@@ -18,6 +18,15 @@ reference's FF_NO_TILE_CULL=1), on the kernels without cluster lists.
 `analytic=False` takes the reference's texture route (`bench.py`'s
 `analytic=0` rows): the beams are rasterized once a step into a 256x256
 texture that every variant's projector looks up.
+
+Geometry gradients take the face-table attribute route
+(`static_geometry=False`): `pose_step` is the loss and gradient with
+respect to a (3,) translation of every mesh, as `bench.py`'s `pose_soft`
+row measures it (path-traced L2 plus a soft-silhouette mask L2 against
+targets rendered once):
+
+    targets = pose_targets(bridge, randomize, beams, seeds, cfg)
+    loss, grad = pose_step(bridge, randomize, beams, delta, seeds, targets, cfg)
 """
 
 from __future__ import annotations
@@ -25,8 +34,10 @@ from __future__ import annotations
 import torch
 
 from fireflies_tpu_torch.assets import scenes
+from fireflies_tpu_torch.optim import hybrid_pose_loss
 from fireflies_tpu_torch.projection import laser
 from fireflies_tpu_torch.render import RenderConfig, SceneBridge, render_rgb
+from fireflies_tpu_torch.render.soft import render_soft_silhouette
 
 Tensor = torch.Tensor
 
@@ -35,12 +46,15 @@ BEAM_SIGMA = 10.0
 BEAM_TEXTURE = (256, 256)
 
 # The shapes chip_smoke.py drives, by name: (vocalfold resolution,
-# bench_config settings beside size).  All have 2 bounces and a batch of 16
-# there.  Faces (fold + 288 tube): main 1440, the benchmark default (B1 and
-# B3); mid 5288, the mid-sized route (B1 and B5); reference 11538, the
-# reference-realistic shape (B2 and B4).  The `_unculled` shapes turn tile
-# culling off: main_unculled on B6 and B3, reference_unculled on B7s and
-# B7g with the attribute gather.
+# bench_config settings beside size, and `smooth` for build).  All have 2
+# bounces and a batch of 16 there.  Faces (fold + 288 tube): main 1440, the
+# benchmark default (B1 and B3); mid 5288, the mid-sized route (B1 and B5);
+# reference 11538, the reference-realistic shape (B2 and B4).  The
+# `_unculled` shapes turn tile culling off: main_unculled on B6 and B3,
+# reference_unculled on B7s and B7g with the attribute gather.  The
+# `geometry` shapes take the face-table attribute route: geometry is main
+# with smooth normals (B1 and B3), reference_geometry bench.py's
+# static_geom=0 row (B2 and B4 without kernel-emitted attributes).
 _REFERENCE = dict(spp=4, coherent_bounce=True, shared_primary=True)
 SHAPES = {
     "main": (24, {}),
@@ -48,25 +62,39 @@ SHAPES = {
     "reference": (75, _REFERENCE),
     "main_unculled": (24, dict(tile_cull=False)),
     "reference_unculled": (75, dict(_REFERENCE, tile_cull=False)),
+    "geometry": (24, dict(static_geometry=False, smooth=True)),
+    "reference_geometry": (75, dict(spp=4, coherent_bounce=True, static_geometry=False)),
 }
 
 
 def bench_config(size: int = 512, spp: int = 1, bounces: int = 2, coherent_bounce: bool = False,
-                 shared_primary: bool = False, tile_cull: bool = True) -> RenderConfig:
+                 shared_primary: bool = False, tile_cull: bool = True,
+                 static_geometry: bool = True) -> RenderConfig:
     return RenderConfig(width=size, height=size, spp=spp, max_bounces=bounces,
-                        static_geometry=True, coherent_bounce=coherent_bounce,
+                        static_geometry=static_geometry, coherent_bounce=coherent_bounce,
                         shared_primary=shared_primary, tile_cull=tile_cull)
 
 
-def build(device="cuda", resolution: int = SHAPES["main"][0]):
-    """(bridge, randomize, beams): the vocalfold scene at `resolution`, its
-    randomize function on `device` (the card unless the caller asks for the
-    CPU), and the (144, 3) uniform beam pattern."""
-    scene, kw = scenes.vocalfold(resolution=resolution, n_anim_frames=4)
+def build(device="cuda", resolution: int = SHAPES["main"][0], smooth: bool = False):
+    """(bridge, randomize, beams): the vocalfold scene at `resolution`
+    (`smooth`: shaded with vertex normals), its randomize function on
+    `device` (the card unless the caller asks for the CPU), and the (144, 3)
+    uniform beam pattern."""
+    scene, kw = scenes.vocalfold(resolution=resolution, n_anim_frames=4, smooth=smooth)
     bridge = SceneBridge(scene, **kw)
     randomize = scene.compile(device=device)
     beams = laser.generate_uniform_rays(0.0275, 12, 12, device=device)
     return bridge, randomize, beams
+
+
+def build_shape(name: str, device="cuda", size: int = 512):
+    """(bridge, randomize, beams, cfg) of the shape `name` of SHAPES at a
+    size x size film."""
+    resolution, settings = SHAPES[name]
+    settings = dict(settings)
+    smooth = settings.pop("smooth", False)
+    return (*build(device, resolution=resolution, smooth=smooth),
+            bench_config(size=size, **settings))
 
 
 def generators(seeds, device) -> list[torch.Generator]:
@@ -111,3 +139,55 @@ def pattern_step(bridge: SceneBridge, randomize, beams: Tensor, seeds,
     loss = img.mean(dim=(1, 2, 3)).mean()
     loss.backward()
     return loss.detach(), beams.grad
+
+
+SOFT_SIZE = 256  # the soft silhouette's film, bench.py's BENCH_SOFT_SIZE
+
+
+def pose_scene(bridge: SceneBridge, randomize, beams: Tensor, delta: Tensor, seeds,
+               render_seeds=None):
+    """(scene, gens): the RenderScene of one randomized variant per seed
+    (analytic projector) with every vertex moved by the (3,) translation
+    `delta`, and the generators of its render: those of `render_seeds`
+    when given, else the variants' own after their draws."""
+    gens = generators(seeds, beams.device)
+    scene = scene_batch(bridge, randomize, beams, gens)
+    if render_seeds is not None:
+        gens = generators(render_seeds, beams.device)
+    geo = scene.geometry
+    return scene.replace(geometry=geo.replace(vertices=geo.vertices + delta)), gens
+
+
+def pose_targets(bridge: SceneBridge, randomize, beams: Tensor, seeds, cfg: RenderConfig,
+                 render_seeds=None, soft_size: int = SOFT_SIZE) -> tuple[Tensor, Tensor]:
+    """The detached targets of the pose objective at delta = 0: each seed's
+    image (B, H, W, 3), its draws as `pose_scene` makes them, and its soft
+    silhouette (B, soft_size, soft_size)."""
+    with torch.no_grad():
+        zero = torch.zeros(3, device=beams.device)
+        scene, gens = pose_scene(bridge, randomize, beams, zero, seeds, render_seeds)
+        img = render_rgb(scene, gens, cfg)
+        mask = render_soft_silhouette(scene, cfg.replace(width=soft_size, height=soft_size))
+    return img, mask
+
+
+def pose_step(bridge: SceneBridge, randomize, beams: Tensor, delta: Tensor, seeds, targets,
+              cfg: RenderConfig, soft_size: int = SOFT_SIZE,
+              render_seeds=None) -> tuple[Tensor, Tensor]:
+    """The pose objective (`optim.hybrid_pose_loss`: the path-traced image's
+    L2 against the targets' plus the soft silhouette's, each a mean over
+    the batch) and its gradient with respect to the (3,) translation
+    `delta`, in one batched render, one soft silhouette and one backward,
+    as the loss of the reference's `bench.py::_measure_pose`.  Variants and
+    draws as `pose_scene` makes them.  `cfg.static_geometry` must be False,
+    or the vertices get no gradient."""
+    if cfg.static_geometry:
+        raise ValueError("pose_step needs RenderConfig(static_geometry=False)")
+    delta = delta.detach().requires_grad_(True)
+    tgt_img, tgt_mask = targets
+    scene, gens = pose_scene(bridge, randomize, beams, delta, seeds, render_seeds)
+    img = render_rgb(scene, gens, cfg)
+    mask = render_soft_silhouette(scene, cfg.replace(width=soft_size, height=soft_size))
+    loss = hybrid_pose_loss(img, tgt_img, mask, tgt_mask)
+    loss.backward()
+    return loss.detach(), delta.grad

@@ -831,9 +831,7 @@ def _record_launches(shape: str, device, size: int, batch: int) -> dict[str, lis
     (`Kernel.record`), by kernel name."""
     from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
 
-    resolution, shape_cfg = main_path.SHAPES[shape]
-    cfg = main_path.bench_config(size=size, **shape_cfg)
-    bridge, randomize, beams = main_path.build(device, resolution=resolution)
+    bridge, randomize, beams, cfg = main_path.build_shape(shape, device, size)
     for kernel in KERNELS.values():
         kernel.recorded = []
     with torch.no_grad():

@@ -1,16 +1,18 @@
 """Where a render path's device time goes, from torch.profiler's device events.
 
     python -m fireflies_tpu_torch.profile_main [--shape main] [--size 512] [--batch 16]
-        [--analytic 1]
+        [--analytic 1] [--static-geometry 0|1]
 
 `--shape` picks one of the shapes chip_smoke.py drives (`main_path.SHAPES`),
 all with 2 bounces: `main` (1440 faces, spp 1; B1 and B3, the default),
 `mid` (5288 faces, spp 1; B1 and B5), `reference` (the reference-realistic
 shape: 11538 faces, spp 4, coherent bounce, shared primary; B2 and B4), and
 with tile culling off `main_unculled` (B6 and B3) and `reference_unculled`
-(B7s and B7g).  `--analytic 0` takes the texture route (the beams
-rasterized into a 256x256 projector texture) in place of the analytic
-beam splat.
+(B7s and B7g), and on the face-table attribute route `geometry` (main with
+smooth normals) and `reference_geometry` (bench.py's static_geom=0 row).
+`--analytic 0` takes the texture route (the beams rasterized into a
+256x256 projector texture) in place of the analytic beam splat;
+`--static-geometry` overrides the shape's (0: the face-table route).
 Profiles one forward batch (`render_batch` under no_grad) and one pattern
 step over the same batch (one batched render, one backward), each after a
 warm-up, and prints for each:
@@ -126,13 +128,14 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--shape", choices=sorted(main_path.SHAPES), default="main")
     ap.add_argument("--analytic", type=int, choices=(0, 1), default=1)
+    ap.add_argument("--static-geometry", type=int, choices=(0, 1), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main needs a CUDA device")
     dev = torch.device("cuda", 0)
-    resolution, shape_cfg = main_path.SHAPES[args.shape]
-    bridge, randomize, beams = main_path.build(dev, resolution=resolution)
-    cfg = main_path.bench_config(size=args.size, **shape_cfg)
+    bridge, randomize, beams, cfg = main_path.build_shape(args.shape, dev, args.size)
+    if args.static_geometry is not None:
+        cfg = cfg.replace(static_geometry=bool(args.static_geometry))
     seeds = list(range(args.batch))
 
     analytic = bool(args.analytic)
@@ -146,7 +149,8 @@ def main() -> None:
 
     print(f"{torch.cuda.get_device_name(0)}, {len(bridge._faces)} faces, "
           f"{args.size}x{args.size}, spp {cfg.spp}, batch {args.batch}, "
-          f"{'analytic' if analytic else 'texture'} projector", flush=True)
+          f"{'analytic' if analytic else 'texture'} projector, static_geometry "
+          f"{cfg.static_geometry}, smooth normals {bridge._smooth_mask is not None}", flush=True)
     report(f"forward, batch {args.batch}", forward, args.top)
     torch.cuda.reset_peak_memory_stats(dev)
     report(f"pattern step, batch {args.batch}", step, args.top)

@@ -12,8 +12,13 @@ the constructor's `projector_texture`, else ones((8, 8, 3)); (3, H, W)
 textures are moved to (H, W, 3).  A texture that every variant passes as
 the same tensor stays one (H, W, 3) texture for the batch.
 
-Not ported yet: material textures, smooth vertex normals and area lights;
-a scene that needs them raises NotImplementedError.
+Mesh uvs are carried (zeros for a mesh without them) when some mesh has
+them.  Meshes flagged smooth get area-weighted vertex normals, computed
+from each variant's vertices on every assemble (differentiable with
+respect to them); flat meshes' rows are zero.
+
+Not ported yet: material textures and area lights; a scene that needs them
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from fireflies_tpu_torch.render.types import (
     Materials,
     Projector,
     RenderScene,
+    compute_vertex_normals,
 )
 from fireflies_tpu_torch.scene import Scene, canonical_param
 
@@ -96,11 +102,10 @@ class SceneBridge:
         self._mesh_names = [m.name() for m in scene.meshes()]
         mat_index = {m.name(): i for i, m in enumerate(scene.materials())}
         binding = scene.mesh_material_binding()
-        faces_list, face_mesh, face_mat = [], [], []
+        faces_list, face_mesh, face_mat, uvs_list = [], [], [], []
         offset = 0
+        any_uv = any(m.uvs() is not None for m in scene.meshes())
         for mi, mesh in enumerate(scene.meshes()):
-            if mesh.smooth():
-                raise NotImplementedError("smooth vertex normals are not ported")
             f = mesh.faces()
             if f is None:
                 raise ValueError(f"mesh {mesh.name()} has no faces")
@@ -109,10 +114,22 @@ class SceneBridge:
             mat_name = binding.get(mesh.name())
             face_mat.append(np.full(len(f), mat_index.get(mat_name, 0) if mat_name else 0,
                                     np.int32))
+            if any_uv:
+                uv = mesh.uvs()
+                if uv is None or uv.shape[0] != mesh.num_vertices():
+                    uv = np.zeros((mesh.num_vertices(), 2), np.float32)
+                uvs_list.append(uv)
             offset += mesh.num_vertices()
         self._faces = np.concatenate(faces_list).astype(np.int32)
         self._face_mesh = np.concatenate(face_mesh)
         self._face_mat = np.concatenate(face_mat)
+        self._uvs = np.concatenate(uvs_list).astype(np.float32) if any_uv else None
+
+        # Smooth-shading vertex mask: 1 on the vertices of smooth meshes, so
+        # flat meshes' normal rows are zero (None when no mesh is smooth).
+        mask = np.concatenate([np.full(m.num_vertices(), float(m.smooth()), np.float32)
+                               for m in scene.meshes()])
+        self._smooth_mask = mask if mask.any() else None
 
         # Morton order by rest-pose centroid, within each mesh (meshes often
         # interleave in space, e.g. a tube around the folds).
@@ -168,11 +185,17 @@ class SceneBridge:
         verts = torch.stack([
             torch.cat([p[name + ".vertex_positions"] for name in self._mesh_names])
             for p in variants])
+        faces = torch.as_tensor(self._faces, dtype=torch.long, device=dev)
+        normals = None
+        if self._smooth_mask is not None:
+            normals = compute_vertex_normals(verts, faces) * _f32(self._smooth_mask, dev)[:, None]
         geometry = Geometry(
             vertices=verts,
-            faces=torch.as_tensor(self._faces, dtype=torch.long, device=dev),
+            faces=faces,
             face_mat=torch.as_tensor(self._face_mat, dtype=torch.long, device=dev),
             face_mesh=torch.as_tensor(self._face_mesh, dtype=torch.long, device=dev),
+            uvs=_f32(self._uvs, dev) if self._uvs is not None else None,
+            normals=normals,
         )
 
         # ---- materials ------------------------------------------------------

@@ -208,6 +208,98 @@ def live_ray_blocks(tmax: Tensor):
             yield bi, live[s0:s0 + RAY_BLOCK]
 
 
+# The plain versions test a (rays, faces) block in two passes: a float32
+# pass without fused steps keeps every pair whose test the kernel's
+# arithmetic could pass, with each quantity widened by a margin of
+# _FILTER_SLACK times a bound on its magnitude (the bounds' products of
+# norms, by Cauchy-Schwarz; both roundings differ from the exact value by a
+# few 2^-24 of that bound, the slack is 1e-4); the kernel's arithmetic then
+# runs on those pairs only.  Its result is the same as over every pair;
+# most pairs leave in the first pass, which costs a fraction of the fused
+# steps' float64 emulation.
+_FILTER_SLACK = 1e-4
+
+
+def _norm(x, y, z):
+    return torch.sqrt(x * x + y * y + z * z)
+
+
+def _exact_on(cand: Tensor, exact, ray: list, face: list, tm: Tensor) -> Tensor:
+    """(rays, faces) t of the kernel's test (`exact(ray, face, tm)` on
+    gathered pairs) where `cand`, BIG elsewhere."""
+    t = torch.full(cand.shape, _BIG, dtype=torch.float32, device=cand.device)
+    if bool(cand.any()):
+        ri, fi = cand.nonzero(as_tuple=True)
+        t[ri, fi] = exact([x[ri, 0] for x in ray], [x[0, fi] for x in face], tm[ri, 0])
+    return t
+
+
+def _mt_exact(ray: list, face: list, tm: Tensor, t_min: float) -> Tensor:
+    """B3's and B5's test in their rounding (see mt_hits_plain) on
+    broadcast rays and faces; t, BIG where the test fails."""
+    def cross(ay, az, by, bz):  # ay bz - az by, one rounding of the difference
+        return fma32(ay, bz, -(az * by))
+
+    def dot(ax, ay, az, bx, by, bz):
+        return fma32(az, bz, fma32(ay, by, ax * bx))
+
+    ox, oy, oz, dx, dy, dz = ray
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = face
+    px = cross(dy, dz, e2y, e2z)
+    py = cross(dz, dx, e2z, e2x)
+    pz = cross(dx, dy, e2x, e2y)
+    det = dot(e1x, e1y, e1z, px, py, pz)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    sgn = torch.where(det >= 0.0, 1.0, -1.0)
+    dn = det * sgn
+    un = dot(tx, ty, tz, px, py, pz) * sgn
+    vn = dot(dx, dy, dz, qx, qy, qz) * sgn
+    tn = (e2x * qx + e2y * qy + e2z * qz) * sgn
+    eb = _EPS_BARY * dn
+    ok = ((dn >= _EPS_DET) & (un >= -eb) & (vn >= -eb) & (un + vn <= dn + eb)
+          & (tn > t_min * dn) & (tn < tm * dn))
+    return torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
+
+
+def _mt_candidates(ray: list, face: list, norms: list, tm: Tensor, t_min: float) -> Tensor:
+    """The pairs B3's test could accept (see _FILTER_SLACK): P, det, u and
+    v unfused, widened by R |e1| |d| |e2| (det), R (|o| + |v0|) |d| |e2|
+    (u) and R (|o| + |v0|) |d| |e1| (v); Q and t round as the kernel's."""
+    ox, oy, oz, dx, dy, dz = ray
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = face
+    n_o, n_d, n_v0, n_e1, n_e2 = norms
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    sgn = torch.where(det >= 0.0, 1.0, -1.0)
+    dn = det.abs()
+    un = (tx * px + ty * py + tz * pz) * sgn
+    vn = (dx * qx + dy * qy + dz * qz) * sgn
+    tn = (e2x * qx + e2y * qy + e2z * qz) * sgn
+    r = _FILTER_SLACK
+    m_det = n_d * (n_e1 * n_e2 * r)
+    od = (n_o + n_v0) * n_d
+    m_u = od * (n_e2 * r)
+    m_v = od * (n_e1 * r)
+    dn_hi = (dn + m_det) * (1.0 + r)
+    sure = ((un + m_u >= -_EPS_BARY * dn_hi) & (vn + m_v >= -_EPS_BARY * dn_hi)
+            & (un + vn - m_u - m_v <= dn_hi * (1.0 + _EPS_BARY))
+            & (tn > t_min * (dn - m_det) * (1.0 - r)) & (tn < tm * dn_hi))
+    return (dn_hi >= _EPS_DET) & ((dn <= m_det) | sure)
+
+
 def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: float,
                   listed: Tensor | None = None, chunk: int = CHUNK):
     """The rational Möller-Trumbore test of the general kernels as a
@@ -217,13 +309,8 @@ def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: floa
     Rounds as B3's and B5's kernels (`csrc/intersect_general.cuh`): the
     components of P = d x e2 as fma(a, b, -(c d)) and the dots det, u and v
     as fma(z, z', fma(y, y', x x')) (`fma32`), every other operation on its
-    own.  Returns (t, prim), each (B, R); prim = -1 on a miss."""
-    def cross(ay, az, by, bz):  # ay bz - az by, one rounding of the difference
-        return fma32(ay, bz, -(az * by))
-
-    def dot(ax, ay, az, bx, by, bz):
-        return fma32(az, bz, fma32(ay, by, ax * bx))
-
+    own; that arithmetic runs on the pairs `_mt_candidates` keeps.  Returns
+    (t, prim), each (B, R); prim = -1 on a miss."""
     b = rays_soa.shape[0]
     r = tmax_tiles[0].numel()
     rays = rays_soa.reshape(b, 6, r)
@@ -232,8 +319,13 @@ def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: floa
     out_p = torch.full((b, r), -1, dtype=torch.int32, device=rays.device)
     n_face = tri.shape[2]
     face_cluster = torch.arange(n_face, device=rays.device) // chunk
+
+    def exact(ray, face, tm):
+        return _mt_exact(ray, face, tm, t_min)
+
     for bi, idx in live_ray_blocks(tmax):
-        ox, oy, oz, dx, dy, dz = (rays[bi, k, idx, None] for k in range(6))
+        ray = [rays[bi, k, idx, None] for k in range(6)]
+        ray_norms = [_norm(*ray[:3]), _norm(*ray[3:])]
         tm = tmax[bi, idx, None]
         tile = idx // RAY_TILE
         best_t = torch.full_like(tm[:, 0], _BIG)
@@ -244,30 +336,13 @@ def mt_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, tri: Tensor, t_min: floa
                 on_list = listed[bi][tile[:, None], face_cluster[None, f0:f0 + FACE_BLOCK]]
                 if not bool(on_list.any()):
                     continue  # no ray of the block lists these faces
-            (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = (
-                tri[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(9))
-            px = cross(dy, dz, e2y, e2z)
-            py = cross(dz, dx, e2z, e2x)
-            pz = cross(dx, dy, e2x, e2y)
-            det = dot(e1x, e1y, e1z, px, py, pz)
-            tx = ox - v0x
-            ty = oy - v0y
-            tz = oz - v0z
-            qx = ty * e1z - tz * e1y
-            qy = tz * e1x - tx * e1z
-            qz = tx * e1y - ty * e1x
-            sgn = torch.where(det >= 0.0, 1.0, -1.0)
-            dn = det * sgn
-            un = dot(tx, ty, tz, px, py, pz) * sgn
-            vn = dot(dx, dy, dz, qx, qy, qz) * sgn
-            tn = (e2x * qx + e2y * qy + e2z * qz) * sgn
-            eb = _EPS_BARY * dn
-            ok = ((dn >= _EPS_DET) & (un >= -eb) & (vn >= -eb) & (un + vn <= dn + eb)
-                  & (tn > t_min * dn) & (tn < tm * dn))
+            face = [tri[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(9)]
+            norms = ray_norms + [_norm(*face[0:3]), _norm(*face[3:6]), _norm(*face[6:9])]
+            cand = _mt_candidates(ray, face, norms, tm, t_min)
             if on_list is not None:
-                ok &= on_list
-            t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
-            best_t, best_p = _carry_min(t, f0, best_t, best_p)
+                cand &= on_list
+            best_t, best_p = _carry_min(_exact_on(cand, exact, ray, face, tm), f0, best_t,
+                                        best_p)
         out_t[bi, idx] = torch.where(best_p >= 0, best_t, 0.0)
         out_p[bi, idx] = best_p
     return out_t, out_p
@@ -300,6 +375,80 @@ def fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
     return out
 
 
+def _woop_exact(ray: list, face: list, tm: Tensor, t_min: float, general: bool,
+                fused: bool) -> Tensor:
+    """The Woop test in the kernels' rounding (see woop_hits_plain) on
+    broadcast rays and faces; t, BIG where the test fails."""
+    (w00, w01, w02, w10, w11, w12, w20, w21, w22, opx, opy, opz) = face
+    dx, dy, dz = ray[-3:]
+    if general:
+        ox, oy, oz = ray[:3]
+        opx = fma32(w02, oz, fma32(w01, oy, fma32(w00, ox, -opx)))
+        opy = fma32(w12, oz, fma32(w11, oy, fma32(w10, ox, -opy)))
+        opz = fma32(w22, oz, fma32(w21, oy, fma32(w20, ox, -opz)))
+    if general or fused:
+        dpx = fma32(w02, dz, fma32(w01, dy, w00 * dx))
+        dpy = fma32(w12, dz, fma32(w11, dy, w10 * dx))
+        dpz = fma32(w22, dz, fma32(w21, dy, w20 * dx))
+    else:
+        dpx = w00 * dx + w01 * dy + w02 * dz
+        dpy = w10 * dx + w11 * dy + w12 * dz
+        dpz = w20 * dx + w21 * dy + w22 * dz
+    sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
+    dn = dpz * sgn
+    tn = -opz * sgn
+    if general or fused:
+        u_n = fma32(opx, dn, tn * dpx)
+        v_n = fma32(opy, dn, tn * dpy)
+    else:
+        u_n = opx * dn + tn * dpx
+        v_n = opy * dn + tn * dpy
+    ok = ((dn > 1e-12) & (u_n >= -_EPS_BARY * dn)
+          & (v_n >= -_EPS_BARY * dn) & (u_n + v_n <= (1.0 + _EPS_BARY) * dn)
+          & (tn > t_min * dn) & (tn < tm * dn))
+    return torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
+
+
+def _woop_candidates(ray: list, face: list, norms: list, tm: Tensor, t_min: float,
+                     general: bool) -> Tensor:
+    """The pairs the Woop test could accept (see _FILTER_SLACK): d' and o'
+    unfused, with |W_k d| <= |W_k| |d| and |o'_k| <= |W_k| |o| + |(W v0)_k|
+    (the table's o'_k for a shared origin) bounding u_n = o'_x dn + t_n d'_x,
+    v_n and t_n."""
+    (w00, w01, w02, w10, w11, w12, w20, w21, w22, opx, opy, opz) = face
+    dx, dy, dz = ray[-3:]
+    n_d, n_wx, n_wy, n_wz = norms[-4:]
+    r = _FILTER_SLACK
+    if general:
+        ox, oy, oz = ray[:3]
+        n_o = norms[0]
+        ax, ay, az = (n_o * n_w + o_w.abs() for n_w, o_w in ((n_wx, opx), (n_wy, opy),
+                                                            (n_wz, opz)))
+        opx = w00 * ox + w01 * oy + w02 * oz - opx
+        opy = w10 * ox + w11 * oy + w12 * oz - opy
+        opz = w20 * ox + w21 * oy + w22 * oz - opz
+        m_tn = az * r
+    else:
+        ax, ay, az = opx.abs(), opy.abs(), opz.abs()
+        m_tn = 0.0
+    dpx = w00 * dx + w01 * dy + w02 * dz
+    dpy = w10 * dx + w11 * dy + w12 * dz
+    dpz = w20 * dx + w21 * dy + w22 * dz
+    sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
+    dn = dpz.abs()
+    tn = -opz * sgn
+    u_n = opx * dn + tn * dpx
+    v_n = opy * dn + tn * dpy
+    m_dn = n_d * (n_wz * r)
+    m_u = n_d * (ax * n_wz + az * n_wx) * r
+    m_v = n_d * (ay * n_wz + az * n_wy) * r
+    dn_hi = (dn + m_dn) * (1.0 + r)
+    sure = ((u_n + m_u >= -_EPS_BARY * dn_hi) & (v_n + m_v >= -_EPS_BARY * dn_hi)
+            & (u_n + v_n - m_u - m_v <= (1.0 + _EPS_BARY) * dn_hi)
+            & (tn + m_tn > t_min * (dn - m_dn) * (1.0 - r)) & (tn - m_tn < tm * dn_hi))
+    return (dn_hi > 1e-12) & ((dn <= m_dn) | sure)
+
+
 def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: Tensor | None,
                     t_min: float, chunk: int, fused: bool = False):
     """The division-free Woop test of the shared-origin and streamed
@@ -315,8 +464,9 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
     of fused multiply-adds (`fma32`) in the kernel's order, every other
     operation on its own.  The shared-origin branch rounds d'_k, u_n and
     v_n so too with `fused` (B1, B2 and B7s, `csrc/intersect_shared.cuh`
-    with kFused), else every operation on its own (B6).  Returns (t, prim),
-    each (B, R); prim = -1 on a miss."""
+    with kFused), else every operation on its own (B6).  That arithmetic
+    runs on the pairs `_woop_candidates` keeps.  Returns (t, prim), each
+    (B, R); prim = -1 on a miss."""
     b, n_comp = rays_soa.shape[:2]
     general = n_comp == 6
     r = tmax_tiles[0].numel()
@@ -326,9 +476,13 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
     out_p = torch.full((b, r), -1, dtype=torch.int32, device=rays.device)
     n_face = woop.shape[2]
     face_cluster = torch.arange(n_face, device=rays.device) // chunk
+
+    def exact(ray, face, tm):
+        return _woop_exact(ray, face, tm, t_min, general, fused)
+
     for bi, idx in live_ray_blocks(tmax):
         ray = [rays[bi, k, idx, None] for k in range(n_comp)]
-        dx, dy, dz = ray[-3:]
+        ray_norms = ([_norm(*ray[:3])] if general else []) + [_norm(*ray[-3:])]
         tm = tmax[bi, idx, None]
         tile = idx // RAY_TILE
         best_t = torch.full_like(tm[:, 0], _BIG)
@@ -339,37 +493,13 @@ def woop_hits_plain(rays_soa: Tensor, tmax_tiles: Tensor, woop: Tensor, listed: 
                 on_list = listed[bi][tile[:, None], face_cluster[None, f0:f0 + FACE_BLOCK]]
                 if not bool(on_list.any()):
                     continue  # no ray of the block lists these faces
-            (w00, w01, w02, w10, w11, w12, w20, w21, w22, opx, opy, opz) = (
-                woop[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(12))
-            if general:
-                ox, oy, oz = ray[:3]
-                opx = fma32(w02, oz, fma32(w01, oy, fma32(w00, ox, -opx)))
-                opy = fma32(w12, oz, fma32(w11, oy, fma32(w10, ox, -opy)))
-                opz = fma32(w22, oz, fma32(w21, oy, fma32(w20, ox, -opz)))
-            if general or fused:
-                dpx = fma32(w02, dz, fma32(w01, dy, w00 * dx))
-                dpy = fma32(w12, dz, fma32(w11, dy, w10 * dx))
-                dpz = fma32(w22, dz, fma32(w21, dy, w20 * dx))
-            else:
-                dpx = w00 * dx + w01 * dy + w02 * dz
-                dpy = w10 * dx + w11 * dy + w12 * dz
-                dpz = w20 * dx + w21 * dy + w22 * dz
-            sgn = torch.where(dpz >= 0.0, 1.0, -1.0)
-            dn = dpz * sgn
-            tn = -opz * sgn
-            if general or fused:
-                u_n = fma32(opx, dn, tn * dpx)
-                v_n = fma32(opy, dn, tn * dpy)
-            else:
-                u_n = opx * dn + tn * dpx
-                v_n = opy * dn + tn * dpy
-            ok = ((dn > 1e-12) & (u_n >= -_EPS_BARY * dn)
-                  & (v_n >= -_EPS_BARY * dn) & (u_n + v_n <= (1.0 + _EPS_BARY) * dn)
-                  & (tn > t_min * dn) & (tn < tm * dn))
+            face = [woop[bi, k, None, f0:f0 + FACE_BLOCK] for k in range(12)]
+            norms = ray_norms + [_norm(*face[0:3]), _norm(*face[3:6]), _norm(*face[6:9])]
+            cand = _woop_candidates(ray, face, norms, tm, t_min, general)
             if on_list is not None:
-                ok &= on_list
-            t = torch.where(ok, tn / torch.where(ok, dn, 1.0), _BIG)
-            best_t, best_p = _carry_min(t, f0, best_t, best_p)
+                cand &= on_list
+            best_t, best_p = _carry_min(_exact_on(cand, exact, ray, face, tm), f0, best_t,
+                                        best_p)
         out_t[bi, idx] = torch.where(best_p >= 0, best_t, 0.0)
         out_p[bi, idx] = best_p
     return out_t, out_p

@@ -30,7 +30,10 @@ scans.
 
 Traversal is detached: the returned (t, prim) carry no gradient; the
 static-geometry path tracer takes positions from t along the (detached)
-ray and normals/material ids from the Hit.
+ray and normals/material ids from the Hit.  Every other route re-derives
+the hit's attributes differentiably from one packed per-face row
+(`build_face_table`, `hit_attributes_table`), so gradients reach the
+vertices.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from fireflies_tpu_torch.render.cuda import (
     intersect_stream,
 )
 from fireflies_tpu_torch.render.types import Geometry, Hit
+from fireflies_tpu_torch.render.vec3 import Vec3
+from fireflies_tpu_torch.render.vec3 import where as v3_where
 
 Tensor = torch.Tensor
 
@@ -255,3 +260,104 @@ def occluded_any(o: Tensor, d: Tensor, geometry: Geometry, t_min: float = 1e-4, 
     else:
         _, prim = _general(o, d, geometry, t_min, t_max, True, general_chunk, tile_cull)
     return prim >= 0
+
+
+def build_face_table(geometry: Geometry) -> Tensor:
+    """Every per-face shading quantity packed into one row, (B, F, D), so
+    that a path vertex reads its hits' attributes with one row gather.
+
+    Layout (D = 17): p0 (3), e1 (3), e2 (3), uv0 (2), duv1 (2), duv2 (2),
+    mat_id (1), mesh_id (1); with `geometry.normals` 9 more columns, n0 (3),
+    dn1 (3), dn2 (3) (D = 26).  Built from the vertices as they are (not
+    detached), so it is differentiable with respect to them; the uv columns
+    are zero when the geometry has no uvs.
+    """
+    faces = geometry.faces
+    b, f = geometry.vertices.shape[0], faces.shape[0]
+    v0, e1, e2 = geometry.triangle_corners()
+    cols = [v0, e1, e2]
+    if geometry.uvs is not None:
+        uv0, uv1, uv2 = (geometry.uvs[faces[:, k]] for k in range(3))
+        cols += [x.expand(b, f, 2) for x in (uv0, uv1 - uv0, uv2 - uv0)]
+    else:
+        cols.append(v0.new_zeros(b, f, 6))
+    ids = torch.stack([geometry.face_mat, geometry.face_mesh], dim=-1).to(v0.dtype)
+    cols.append(ids.expand(b, f, 2))
+    if geometry.normals is not None:
+        n0, n1, n2 = (geometry.normals[:, faces[:, k]] for k in range(3))
+        cols += [n0, n1 - n0, n2 - n0]
+    return torch.cat(cols, dim=-1)
+
+
+def hit_attributes_table(o: Vec3, d: Vec3, hit: Hit, face_table: Tensor, has_uvs: bool,
+                         has_normals: bool = False) -> dict:
+    """Hit attributes re-derived from one row gather of the face table.
+
+    o, d: Vec3 of (B, N) components (differentiable); `hit` the detached
+    traversal output.  Returns position, normal (unit e1 x e2), t, u, v,
+    mat_id and mesh_id, with `has_uvs` uv_x, uv_y and the uv-derived
+    tangent, with `has_normals` the interpolated smooth_normal.  Miss lanes
+    are pinned to u = v = 0, t = 1 (the position of p0), so no 0 * inf
+    reaches the backward.  The gather's backward adds rows into the table
+    (an atomic index_add_ on the card).
+    """
+    b, f, dim = face_table.shape
+    prim = hit.prim.clamp(min=0).long()
+    flat = (prim + torch.arange(b, device=prim.device)[:, None] * f).reshape(-1)
+    row = face_table.reshape(b * f, dim).index_select(0, flat).reshape(*prim.shape, dim)
+
+    def col(k):
+        return row[..., k]
+
+    def vec(k):
+        return Vec3(row[..., k], row[..., k + 1], row[..., k + 2])
+
+    p0, e1, e2 = vec(0), vec(3), vec(6)
+    pvec = d.cross(e2)
+    det = e1.dot(pvec)
+    near0 = det.abs() < _EPS_DET
+    inv_det = torch.where(near0, 0.0, 1.0 / torch.where(near0, 1.0, det))
+    tvec = o - p0
+    u = tvec.dot(pvec) * inv_det
+    qvec = tvec.cross(e1)
+    v = d.dot(qvec) * inv_det
+    t = e2.dot(qvec) * inv_det
+    u = torch.where(hit.valid, u, 0.0)
+    v = torch.where(hit.valid, v, 0.0)
+    t = torch.where(hit.valid, t, 1.0)
+
+    normal = e1.cross(e2).normalized()
+    out = {
+        "position": p0 + e1 * u + e2 * v,
+        "normal": normal,
+        "t": t,
+        "u": u,
+        "v": v,
+        "mat_id": col(15).long(),
+        "mesh_id": col(16).long(),
+    }
+    if has_uvs:
+        d1x, d1y, d2x, d2y = col(11), col(12), col(13), col(14)
+        out["uv_x"] = col(9) + u * d1x + v * d2x
+        out["uv_y"] = col(10) + u * d1y + v * d2y
+        det_uv = d1x * d2y - d1y * d2x
+        flat_uv = det_uv.abs() < 1e-12
+        inv = torch.where(flat_uv, 0.0, 1.0 / torch.where(flat_uv, 1.0, det_uv))
+        out["tangent"] = (e1 * d2y - e2 * d1y) * inv
+    if has_normals:
+        out["smooth_normal"] = _interp_smooth_normal(vec(17), vec(20), vec(23), u, v, normal)
+    return out
+
+
+def _interp_smooth_normal(n0: Vec3, dn1: Vec3, dn2: Vec3, u: Tensor, v: Tensor,
+                          geometric: Vec3) -> Vec3:
+    """The unit Phong-interpolated normal n0 + u dn1 + v dn2, or the
+    geometric normal where the interpolation is (near) zero: all-zero rows
+    mark flat-shaded meshes, and unit corner normals cancel only across a
+    fold beyond 120 degrees.  The rsqrt's radicand is max-guarded, so zero
+    rows keep a finite cotangent."""
+    nsm = n0 + dn1 * u + dn2 * v
+    nn2 = nsm.norm2()
+    ok = nn2 > 1e-6
+    nsm = nsm * torch.rsqrt(torch.clamp(nn2, min=1e-12))
+    return v3_where(ok, nsm, geometric)

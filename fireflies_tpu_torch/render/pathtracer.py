@@ -5,15 +5,21 @@ tensor is (B, N).  Bounces are a Python loop with masked inactive rays;
 next-event estimation covers every delta emitter (point / spot / the
 projector, analytic or textured) with reversed shadow rays on the shared-origin kernel; BSDF
 importance sampling drives the bounces.  Traversal is detached and
-shading differentiable, so gradients reach the projector's beam pattern.
+shading differentiable, so gradients reach the projector's beam pattern
+and, on the face-table route, the vertices.
 
-Ported: the static-geometry route (positions from t along the ray,
-normals and material ids from the hit), delta-emitter NEE with dead-ray
-gating, the default and the tile-coherent bounce sampler
-(`coherent_bounce`), the spp loop, and the shared first vertex
-(`shared_primary`, `_film_render_shared`).  Not ported yet:
-reparameterization, `ray_chunk`, envmap and area-light NEE, material
-textures and smooth normals (these raise).
+Two routes for a hit's attributes, chosen as the reference chooses them
+(`kernel_attrs` in trace_rays): the static-geometry route takes positions
+from t along the ray and normals and material ids from the kernels (the
+vertices get no gradient); the face-table route (RenderConfig's default,
+and any scene with smooth normals) re-derives position, normal, uv,
+tangent and the interpolated smooth normal from one packed row per face
+(intersect.hit_attributes_table), differentiably with respect to the
+vertices.  Also ported: delta-emitter NEE with dead-ray gating, the
+default and the tile-coherent bounce sampler (`coherent_bounce`), the spp
+loop, `ray_chunk`, and the shared first vertex (`shared_primary`,
+`_film_render_shared`).  Not ported yet: reparameterization, envmap and
+area-light NEE, emitter apertures and material textures (these raise).
 """
 
 from __future__ import annotations
@@ -23,11 +29,17 @@ import torch
 from fireflies_tpu_torch.render import bsdf as bsdf_mod
 from fireflies_tpu_torch.render import lights as lights_mod
 from fireflies_tpu_torch.render.cuda.intersect_kernel import RAY_TILE
-from fireflies_tpu_torch.render.intersect import closest_hit, occluded_any
+from fireflies_tpu_torch.render.intersect import (
+    build_face_table,
+    closest_hit,
+    hit_attributes_table,
+    occluded_any,
+)
 from fireflies_tpu_torch.render.rays import camera_rays_tiled, uniform, unpermute_rows
 from fireflies_tpu_torch.render.texture import pack_neighborhood_table
 from fireflies_tpu_torch.render.types import RenderConfig, RenderScene
 from fireflies_tpu_torch.render.vec3 import Vec3, from_array, splat
+from fireflies_tpu_torch.render.vec3 import where as v3_where
 
 Tensor = torch.Tensor
 
@@ -35,12 +47,8 @@ _SHADOW_EPS = 1e-3
 
 
 def _check_supported(scene: RenderScene, config: RenderConfig) -> None:
-    geo = scene.geometry
-    if not config.static_geometry:
-        raise NotImplementedError(
-            "only RenderConfig(static_geometry=True) is ported (kernel hit attributes)")
-    if geo.normals is not None or geo.emissive_faces is not None:
-        raise NotImplementedError("smooth normals and area lights are not ported")
+    if scene.geometry.emissive_faces is not None:
+        raise NotImplementedError("area lights are not ported")
     if scene.background is not None and scene.background.dim() != 1:
         raise NotImplementedError("envmap backgrounds are not ported")
     if any(a is not None for a in lights_mod.emitter_apertures(scene.lights, scene.projector)):
@@ -68,7 +76,8 @@ def _sample_bounce(gens, shade: dict, throughput: Vec3, active: Tensor,
     draws (`coherent_uniforms`) instead of one draw per ray."""
     n, ns, p = shade["n"], shade["ns"], shade["p"]
     uniforms = coherent_uniforms(gens, n.x.shape[-1], n.x.device) if coherent else None
-    wi, pdf, f = bsdf_mod.sample_v(shade["params"], ns, shade["wo"], gens, uniforms=uniforms)
+    wi, pdf, f = bsdf_mod.sample_v(shade["params"], ns, shade["wo"], gens,
+                                   tangent=shade["tangent"], uniforms=uniforms)
     cos_i_s = n.dot(wi)
     cos_i = ns.dot(wi).abs()
     weight = torch.where(pdf > 1e-6, cos_i / torch.clamp(pdf, min=1e-6), 0.0)
@@ -109,6 +118,15 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
                        else torch.zeros(3, device=dev))
     o_v, d_v = from_array(o), from_array(d)
     geo = scene.geometry
+    has_uvs, has_normals = geo.uvs is not None, geo.normals is not None
+    # Attributes straight from the kernels only where nothing needs an
+    # interpolated per-vertex quantity: static geometry, flat shading, and
+    # no uvs or no anisotropic lobe (the uv tangent orients it).  Material
+    # maps, which would also need uvs, are not ported.
+    flags = scene.materials.flags
+    aniso_on = flags is None or "aniso" in flags
+    kernel_attrs = config.static_geometry and not has_normals and not (has_uvs and aniso_on)
+    face_table = None if kernel_attrs else build_face_table(geo)
     positions = lights_mod.emitter_positions(scene.lights, scene.projector)
     # The projector texture's 2x2-neighbourhood table, packed once for every
     # bounce's lookups: one row read a lookup in place of four texels.
@@ -126,26 +144,38 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
         # Dead-ray gating: retired paths carry t_max = -1, which the kernels
         # skip (all-dead tiles skip their cluster loops).
         if bounce == 0:
-            hit = closest_hit(o, d, geo, shared_origin=primary_origin, emit_attrs=True,
+            hit = closest_hit(o, d, geo, shared_origin=primary_origin, emit_attrs=kernel_attrs,
                               tile_cull=config.tile_cull)
         else:
             tmax_b = torch.where(active, 1e30, -1.0)
-            hit = closest_hit(o, d, geo, t_max=tmax_b, emit_attrs=True,
+            hit = closest_hit(o, d, geo, t_max=tmax_b, emit_attrs=kernel_attrs,
                               tile_cull=config.tile_cull)
 
         escaped = active & ~hit.valid
         radiance = radiance + throughput * background * torch.where(escaped, 1.0, 0.0)
         active = active & hit.valid
 
-        p = o_v + d_v * hit.t
-        n_geo = Vec3(hit.nx, hit.ny, hit.nz).normalized()
+        if kernel_attrs:
+            attrs = {"position": o_v + d_v * hit.t,
+                     "normal": Vec3(hit.nx, hit.ny, hit.nz).normalized(), "mat_id": hit.mat}
+        else:
+            attrs = hit_attributes_table(o_v, d_v, hit, face_table, has_uvs, has_normals)
+        p, n_geo = attrs["position"], attrs["normal"]
         flip = torch.sign(-n_geo.dot(d_v))
         flip = torch.where(flip == 0, 1.0, flip)
         n = n_geo * flip
-        ns = n
         wo = -d_v
+        tangent = attrs.get("tangent")
+        # Shading normal: the interpolated vertex normal where the mesh is
+        # smooth, kept in the geometric hemisphere so that grazing
+        # interpolation cannot let light through the surface.
+        if "smooth_normal" in attrs:
+            n_sm = attrs["smooth_normal"] * flip
+            ns = v3_where(n_sm.dot(n) > 1e-4, n_sm, n)
+        else:
+            ns = n
 
-        params = bsdf_mod.gather_params(scene.materials, hit.mat)
+        params = bsdf_mod.gather_params(scene.materials, attrs["mat_id"])
         params["eta_rel"] = torch.where(
             flip > 0, params["ior"], 1.0 / torch.clamp(params["ior"], min=1e-3))
         emission = bsdf_mod._colv(params, "emission")
@@ -165,11 +195,11 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
             blocked = occluded_any(shadow_o.detach(), seg_d, geo, t_min=1e-4, t_max=tmax_l,
                                    shared_origin=positions[li].detach(),
                                    tile_cull=config.tile_cull)
-            f = bsdf_mod.evaluate_v(params, ns, wo, wi_l)
+            f = bsdf_mod.evaluate_v(params, ns, wo, wi_l, tangent=tangent)
             cos_i = ns.dot(wi_l).abs()
             radiance = radiance + throughput * f * rad_l * torch.where(lit & ~blocked, cos_i, 0.0)
 
-        shade = dict(params=params, ns=ns, n=n, wo=wo, p=p)
+        shade = dict(params=params, ns=ns, n=n, wo=wo, p=p, tangent=tangent)
         if v0_capture is not None and bounce == 0:
             v0_capture.update(shade=shade, active=active)
             return radiance.to_array()
@@ -181,10 +211,24 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
 
 
 def _film_render(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
-    """One sample per pixel; (B, H*W, 3) in row-major pixel order."""
+    """One sample per pixel; (B, H*W, 3) in row-major pixel order.  With
+    `ray_chunk` below the film's ray count, the tile-major rays are padded
+    (o = 0, d = 1) to whole chunks, traced chunk after chunk (each variant's
+    generator draws on from one chunk to the next) and sliced back."""
     o, d, inv_perm = camera_rays_tiled(scene.camera, config.width, config.height, gens=gens)
-    radiance = trace_rays(scene, o, d, gens, config,
-                          primary_origin=scene.camera.to_world[:, :3, 3])
+    cam = scene.camera.to_world[:, :3, 3]
+    n, chunk = o.shape[1], config.ray_chunk
+    if chunk and chunk < n:
+        pad = -n % chunk
+        if pad:
+            o = torch.cat([o, o.new_zeros(o.shape[0], pad, 3)], dim=1)
+            d = torch.cat([d, d.new_ones(d.shape[0], pad, 3)], dim=1)
+        radiance = torch.cat([
+            trace_rays(scene, o[:, c0:c0 + chunk], d[:, c0:c0 + chunk], gens, config,
+                       primary_origin=cam)
+            for c0 in range(0, n + pad, chunk)], dim=1)[:, :n]
+    else:
+        radiance = trace_rays(scene, o, d, gens, config, primary_origin=cam)
     return unpermute_rows(radiance, inv_perm, config.width, config.height)
 
 
@@ -221,10 +265,10 @@ def _film_render_shared(scene: RenderScene, gens, config: RenderConfig) -> Tenso
 def render_rgb(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
     """Monte-Carlo RGB render of every variant, (B, H, W, 3).  `gens`: one
     torch.Generator per variant (pixel jitter and bounce draws).  With
-    `shared_primary` the first vertex is shared by the spp samples
-    (_film_render_shared); otherwise the spp samples are a Python loop of
-    whole passes."""
-    if config.shared_primary:
+    `shared_primary` (and no `ray_chunk`) the first vertex is shared by the
+    spp samples (_film_render_shared); otherwise the spp samples are a
+    Python loop of whole passes."""
+    if config.shared_primary and not config.ray_chunk:
         img = _film_render_shared(scene, gens, config)
         return img.reshape(scene.batch, config.height, config.width, 3)
     total = None

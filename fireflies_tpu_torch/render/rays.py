@@ -1,4 +1,4 @@
-"""Camera ray generation (port of fireflies_tpu/render/rays.py).
+"""Camera ray generation and projection (port of fireflies_tpu/render/rays.py).
 
 Camera space looks down -Z, +Y up, x-fov in degrees with square pixels;
 pixel (0, 0) is the top-left of the image.  Only the tile-major route is
@@ -91,3 +91,17 @@ def rays_from_ndc(camera: Camera, ndc: Tensor):
     d_world = ffmath.normalize_vectors(ffmath.transform_directions(d_local, camera.to_world))
     o = camera.to_world[:, None, :3, 3].expand_as(d_world)
     return o, d_world
+
+
+def points_to_ndc(camera: Camera, points: Tensor) -> Tensor:
+    """World points (B, N, 3) -> NDC (B, N, 3): x, y in [-1, 1] across the
+    field of view, z the view-space depth (positive in front of the
+    camera).  Into view space by the inverse pose, then the perspective
+    divide (depths below 1e-8 in magnitude divide by 1e-8)."""
+    view = ffmath.transform_points(points, torch.linalg.inv(camera.to_world))
+    depth = -view[..., 2]
+    tan_half = torch.tan(torch.deg2rad(camera.fov) / 2.0)[:, None]
+    safe = torch.where(depth.abs() < 1e-8, 1e-8, depth)
+    x = view[..., 0] / (safe * tan_half)
+    y = view[..., 1] / (safe * tan_half)
+    return torch.stack([x, y, depth], dim=-1)

@@ -107,14 +107,19 @@ class Materials(_Replace):
 @dataclasses.dataclass
 class Geometry(_Replace):
     """Triangle soup: world-space vertices per variant over a static
-    topology with per-face material / mesh ids."""
+    topology with per-face material / mesh ids.  `uvs` are shared by every
+    variant (zeros for meshes without them).  `normals` are smooth-shading
+    vertex normals per variant (`compute_vertex_normals`); all-zero rows
+    mark flat-shaded vertices, where the hit attributes fall back to the
+    geometric normal."""
 
     vertices: Tensor  # (B, V, 3)
     faces: Tensor  # (F, 3) int64
     face_mat: Tensor  # (F,) int64
     face_mesh: Tensor  # (F,) int64
+    uvs: Optional[Tensor] = None  # (V, 2)
     emissive_faces: Optional[Tensor] = None  # area lights: not ported
-    normals: Optional[Tensor] = None  # smooth shading: not ported
+    normals: Optional[Tensor] = None  # (B, V, 3)
 
     def triangle_corners(self):
         """(v0, e1, e2), each (B, F, 3), for Möller-Trumbore."""
@@ -122,6 +127,21 @@ class Geometry(_Replace):
         v1 = self.vertices[:, self.faces[:, 1]]
         v2 = self.vertices[:, self.faces[:, 2]]
         return v0, v1 - v0, v2 - v0
+
+
+def compute_vertex_normals(vertices: Tensor, faces: Tensor) -> Tensor:
+    """Area-weighted unit vertex normals (B, V, 3) of vertices (B, V, 3),
+    differentiable with respect to the vertices: each face's unnormalized
+    (hence area-weighted) normal is added onto its three corners.  The
+    radicand of the rsqrt is max-guarded, so exactly-zero rows
+    (unreferenced vertices) stay zero with a finite cotangent."""
+    v0, v1, v2 = (vertices[:, faces[:, k]] for k in range(3))
+    fn = torch.linalg.cross(v1 - v0, v2 - v0)  # |fn| = 2 * area
+    vn = torch.zeros_like(vertices)
+    for k in range(3):
+        vn = vn.index_add(1, faces[:, k], fn)
+    n2 = (vn * vn).sum(dim=-1, keepdim=True)
+    return vn * torch.rsqrt(torch.clamp(n2, min=1e-24)) * (n2 > 1e-24)
 
 
 @dataclasses.dataclass
@@ -156,23 +176,27 @@ class Hit(_Replace):
     mat: Optional[Tensor] = None
 
 
-_NOT_PORTED = ("reparam", "ray_chunk")
+_NOT_PORTED = ("reparam",)
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig(_Replace):
     """Static render settings, with the reference's fields and defaults.
 
-    Fields whose features are not ported raise NotImplementedError when set:
-    reparam (and its reparam_* tuning fields, inert without it) and
-    ray_chunk.  `coherent_bounce` draws one set of bounce uniforms per
-    2048-ray tile, shared by the tile's rays; `shared_primary` computes the
-    first path vertex (primary hit and its NEE) once for all spp samples
-    (see pathtracer._film_render_shared).  env_nee only acts on
-    envmap backgrounds, which trace_rays refuses.  `static_geometry` must be
-    True: only the kernel-attribute route of the path tracer is ported.
-    `backend` must be "auto" (else ValueError): the device of the tensors
-    picks the intersection route.  `tile_cull=False` is the port's
+    `reparam` is not ported and raises NotImplementedError when set (its
+    reparam_* tuning fields are inert without it).  `ray_chunk` traces the
+    film in chunks of that many rays, one after the other.
+    `coherent_bounce` draws one set of bounce uniforms per 2048-ray tile,
+    shared by the tile's rays; `shared_primary` computes the first path
+    vertex (primary hit and its NEE) once for all spp samples (see
+    pathtracer._film_render_shared; off under `ray_chunk`).  env_nee only
+    acts on envmap backgrounds, which trace_rays refuses.
+    `static_geometry=True` takes positions, normals and material ids from
+    the intersection kernels (the vertices get no gradient); the default
+    re-derives them differentiably from the face table
+    (intersect.hit_attributes_table), as does any scene with smooth
+    normals.  `backend` must be "auto" (else ValueError): the device of the
+    tensors picks the intersection route.  `tile_cull=False` is the port's
     counterpart of the reference's FF_NO_TILE_CULL=1: every ray cast takes
     the kernels without per-tile cluster lists (B6, B3, B7; see
     render/intersect.py); the default keeps the reference's default.

@@ -29,7 +29,12 @@ texture route's deterministic render (pixel-centre rays, one bounce)
 through the kernels against the same render through the plain versions on
 the CPU, within 1e-4 of the image max on >= 99.9% of pixels, with the beam
 gradient within 1e-3 relative L2: the texture gradient's scatter-add uses
-atomic adds on the card, whose order varies from run to run.
+atomic adds on the card, whose order varies from run to run.  The same bars
+hold the `geometry` shape (smooth normals, the differentiable face-table
+attribute route) and the gradient with respect to a translation of its
+vertices (the face table's row gather adds back atomically).  B2 and B4
+are held without emitted attributes too, as that route calls them above
+RESIDENT_MAX_FACES.
 """
 
 import numpy as np
@@ -140,6 +145,29 @@ def test_stream_general_culled_kernel_matches_plain(dev, any_hit):
     assert ist.KERNEL_GENERAL.launches == before + 1
     _check(out, ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4,
                                                any_hit, emit), any_hit)
+
+
+@pytest.mark.parametrize("kernel", ["B2", "B4"])
+def test_stream_culled_closest_without_attributes_matches_plain(dev, kernel):
+    # The face-table route's closest-hit call above RESIDENT_MAX_FACES: no
+    # face_mat, so the kernel emits (t, prim) only.
+    verts, faces, o, d, tmax = _inputs(dev, seed=12)
+    if kernel == "B2":
+        origin = torch.tensor([[0.0, 0.5, 4.0]] * 3, device=dev)
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, origin, None)
+        rays, tm, _ = ik.pack_dirs(d, tmax)
+        lists, counts = ic.tile_cluster_lists(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+        fn, counter = ist.intersect_stream_culled_packed, ist.KERNEL
+    else:
+        woop16, boxes = ist.pack_woop_streamed(verts, faces, None, None)
+        rays, tm, _ = ik.pack_rays(o, d, tmax)
+        lists, counts = ic.tile_cluster_lists_general(rays, boxes, t_min=1e-4, tmax_tiles=tm)
+        fn, counter = ist.intersect_stream_general_culled_packed, ist.KERNEL_GENERAL
+    before = counter.launches
+    out = fn(rays, tm, woop16, boxes, 1e-4, False, False, lists=lists, counts=counts)
+    assert counter.launches == before + 1 and len(out) == 2
+    _check(out, ist.stream_culled_packed_plain(rays, tm, woop16, boxes, lists, counts, 1e-4,
+                                               False, False), False)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -814,6 +842,35 @@ def test_texture_route_render_matches_cpu_plain(dev):
         img.mean().backward()
         imgs.append(img.detach().cpu())
         grads.append(leaf.grad.cpu())
+    img_k, img_p = imgs
+    assert bool(torch.isfinite(img_k).all()) and float(img_p.max()) > 0
+    bad = (img_k - img_p).abs().amax(-1) > 1e-4 * img_p.abs().max()
+    assert float(bad.float().mean()) <= 1e-3
+    g_k, g_p = grads
+    assert float(g_p.abs().max()) > 0
+    assert float((g_k - g_p).norm() / g_p.norm()) <= 1e-3
+
+
+def test_geometry_route_render_and_translation_gradient_match_cpu_plain(dev):
+    from fireflies_tpu_torch.render import pathtracer, rays  # noqa: PLC0415
+
+    bridge, randomize, beams, _ = main_path.build_shape("geometry", dev)
+    cfg = main_path.bench_config(size=128, bounces=1, static_geometry=False).replace(height=32)
+    params = randomize(torch.Generator(device=dev).manual_seed(7), 0)
+    imgs, grads = [], []
+    for device in (dev, torch.device("cpu")):
+        scene = bridge.assemble(dict({k: v.to(device) for k, v in params.items()},
+                                     **main_path.projector_params(beams.to(device))))
+        assert scene.geometry.normals is not None
+        delta = torch.zeros(3, device=device, requires_grad=True)
+        geo = scene.geometry
+        scene = scene.replace(geometry=geo.replace(vertices=geo.vertices + delta))
+        o, d, _ = rays.camera_rays_tiled(scene.camera, cfg.width, cfg.height)
+        img = pathtracer.trace_rays(scene, o, d, None, cfg,
+                                    primary_origin=scene.camera.to_world[:, :3, 3])
+        img.mean().backward()
+        imgs.append(img.detach().cpu())
+        grads.append(delta.grad.cpu())
     img_k, img_p = imgs
     assert bool(torch.isfinite(img_k).all()) and float(img_p.max()) > 0
     bad = (img_k - img_p).abs().amax(-1) > 1e-4 * img_p.abs().max()
