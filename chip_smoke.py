@@ -30,6 +30,8 @@ probe's FP32 throughput kernel X2 and kernel roof.  On the main shape the
 texture route (`analytic=False`: the beams rasterized once a step into a
 256x256 projector texture, bench.py's `analytic=0` rows) runs too, on B1
 and B3, and `bench.measure` gives diff-renders/s, the reference's unit.
+Two loops around the render run on B1 and B3 at the main shape too: the
+pattern optimizer (`optimize`) and the dataset farm (`datagen`).
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: the card's name and power limit; CUDA must be available;
@@ -70,6 +72,23 @@ Phases (each raises on failure, so any failure exits non-zero):
      accumulated gradient on 4 variants, within 1e-5 relative (1e-5 of the
      largest component absolute), as tests/test_torch_render_texture.py
      holds it on the CPU;
+  then the two loops, each with every counter set to 0 just before it and
+  read just after (B1 and B3 launched, no other kernel):
+  optimize: `optim.optimize_pattern_through_render` over
+     `main_path.variant_loss` (16 variants a step at 512x512, spp 1, 2
+     bounces, 144 beams, the analytic projector, `dot_coverage_objective`,
+     Adam at lr 5e-3, respawn on, 3 steps): each step's loss, s/step of
+     steps 2-3, peak memory; the beams finite and unit-norm (1e-5), step 1's
+     loss equal to one direct batched render's (1e-5 relative); then
+     `optimize_point_pattern` at the reference's defaults (500 points,
+     512^2, 200 steps), whose last loss must be below its first;
+  datagen: the AOV integrators (`render_depth`, `render_segmentation`,
+     `render_from_laser`) on 2 variants at 128x32, CUDA against the CPU
+     plain path (segmentation equal but at t-ties on at most 1e-4 of the
+     pixels, depths within 1e-5 relative, the laser's valid masks equal);
+     one counted farm dispatch (`main_path.datagen_batch`, 8 frames, spp
+     4); bench's datagen row at its full parameters (accepted frames/s, one
+     JSON line), counted too;
   7. probe: X2 (`perf_probe.vpu_roof`, its counter set to 0 just before and
      read just after) bit for bit against its plain version, its time,
      bound and rate of unfused FP32 operations; the kernel roof (B3 on a
@@ -90,7 +109,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      smooth=1, pose_soft), each with few repeats and trials; one JSON line
      each.
 Then one JSON line with the kernels (each with its fused operations per
-tested pair, `ops_per_pair`, and for the nine intersection kernels
+tested pair, `ops_per_pair`, its counted launches on every path that runs
+it, `launches_by_path`, and for the nine intersection kernels
 `least_pairs` and `least_bound_ms`; for X1 beside them its tensor-core
 multiply-adds and reciprocals per pair and the bounds with d' on the FP32
 pipe; for X2 its
@@ -103,6 +123,7 @@ last.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import sys
 import time
@@ -400,6 +421,28 @@ def pose_phase(tag, bridge, randomize, beams, seeds, cfg, dev) -> None:
         raise AssertionError("translation gradient is not a finite nonzero (3,) tensor")
 
 
+def count_launches(drive) -> dict:
+    """The launches of every kernel while `drive()` runs: each counter set
+    to 0 just before, read just after (synchronized)."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
+
+    for k in KERNELS.values():
+        k.launches = 0
+    drive()
+    torch.cuda.synchronize()
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def check_launches(tag: str, launches: dict, expected) -> None:
+    """Each kernel of `expected` launched, no other."""
+    if any(launches[n] <= 0 for n in expected):
+        raise AssertionError(f"{tag}: a kernel of the path was never launched: {launches}")
+    if any(count > 0 for n, count in launches.items() if n not in expected):
+        raise AssertionError(f"{tag}: a kernel of another route was launched: {launches}")
+
+
 def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected,
                   analytic: bool = True) -> dict:
     """One counted forward batch (every counter set to 0 just before, read
@@ -409,24 +452,22 @@ def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected,
     import torch  # noqa: PLC0415
 
     from fireflies_tpu_torch import main_path  # noqa: PLC0415
-    from fireflies_tpu_torch.render.cuda import KERNELS  # noqa: PLC0415
 
-    for k in KERNELS.values():
-        k.launches = 0
-    with torch.no_grad():
-        img = main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
-        torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    out = {}
+
+    def drive():
+        with torch.no_grad():
+            out["img"] = main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
+
+    launches = count_launches(drive)
+    img = out["img"]
     log(f"[{tag}/forward] image {tuple(img.shape)} mean {img.mean().item():.6g} "
         f"max {img.max().item():.6g}; launches {launches}")
     if tuple(img.shape) != (len(seeds), cfg.height, cfg.width, 3):
         raise AssertionError(f"unexpected image shape {tuple(img.shape)}")
     if not torch.isfinite(img).all() or img.abs().max() == 0:
         raise AssertionError("image is not finite or is all zero")
-    if any(launches[n] <= 0 for n in expected):
-        raise AssertionError(f"{tag}: a kernel of the path was never launched: {launches}")
-    if any(count > 0 for n, count in launches.items() if n not in expected):
-        raise AssertionError(f"{tag}: a kernel of another route was launched: {launches}")
+    check_launches(tag, launches, expected)
     times = []
     with torch.no_grad():
         main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
@@ -511,6 +552,147 @@ def bench_phase() -> list[dict]:
         print(json.dumps(line), flush=True)
         lines.append(line)
     return lines
+
+
+def optimize_phase(dev) -> dict:
+    """The pattern optimizer (`optim.optimize_pattern_through_render` over
+    `main_path.variant_loss`) on the main shape at full width: 16 variants
+    a step at 512x512, spp 1, 2 bounces, 144 uniform beams, the analytic
+    projector, `dot_coverage_objective(1)`, lr 5e-3, fov 30, respawn on,
+    OPT_STEPS steps, with the counters set to 0 just before and read just
+    after: B1 and B3 launched and no other.  Each step's loss, s/step of
+    steps 2 on (the first loads the backward's kernels), peak memory.  The
+    beams must stay finite and unit-norm (1e-5), and step 1's loss must
+    equal one direct batched render plus objective at the same seeds and
+    step (1e-5 relative).  Then `optimize_point_pattern` at the reference
+    defaults (500 points, 512^2, 200 steps): first and last loss, s/step;
+    the last must be below the first.  Returns the optimizer's launches."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path, optim  # noqa: PLC0415
+    from fireflies_tpu_torch.render import render_rgb  # noqa: PLC0415
+    from fireflies_tpu_torch.utils.seeds import step_generators  # noqa: PLC0415
+
+    bridge, randomize, beams, cfg = main_path.build_shape("main", dev, SIZE)
+    objective = optim.dot_coverage_objective(1)
+    loss_fn = main_path.variant_loss(bridge, randomize, cfg, objective)
+    starts = []
+
+    def timed_loss(rays, gens, step):
+        torch.cuda.synchronize()  # the previous step has ended
+        starts.append(time.perf_counter())
+        return loss_fn(rays, gens, step)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = {}
+
+    def drive():
+        res["opt"] = optim.optimize_pattern_through_render(
+            timed_loss, beams, seed=OPT_SEED, steps=OPT_STEPS, batch=BATCH, learning_rate=5e-3,
+            fov_deg=main_path.PROJECTOR_FOV, respawn_oob=True)
+
+    launches = count_launches(drive)
+    end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rays, losses = res["opt"].rays, res["opt"].losses.tolist()
+    step_s = (end - starts[1]) / (OPT_STEPS - 1)
+    log(f"[optimize] {OPT_STEPS} steps of {BATCH} variants: losses {losses}; {step_s:.4f} s/step "
+        f"(steps 2-{OPT_STEPS}; step 1 {starts[1] - starts[0]:.4f} s), peak {peak:.3f} GiB; "
+        f"launches {launches}")
+    check_launches("optimize", launches, (B1, B3))
+    norm_err = float((rays.norm(dim=-1) - 1).abs().max())
+    if not (torch.isfinite(rays).all() and norm_err <= 1e-5 and tuple(rays.shape) == (144, 3)):
+        raise AssertionError(f"optimize: beams not finite unit vectors (max |1 - |d|| {norm_err})")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("optimize: a step's loss is not finite")
+    with torch.no_grad():
+        gens = step_generators(OPT_SEED, 0, BATCH + 1, dev)[:BATCH]
+        scene = main_path.scene_batch(bridge, randomize, beams, gens, steps=[0] * BATCH)
+        direct = float(objective(render_rgb(scene, gens, cfg)).mean())
+    rel = abs(losses[0] - direct) / abs(direct)
+    log(f"  step 1's loss {losses[0]!r} against the direct batched render's {direct!r}: "
+        f"{rel:.3g} relative")
+    if rel > 1e-5:
+        raise AssertionError("optimize: step 1's loss differs from the direct render's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts = optim.optimize_point_pattern(seed=OPT_SEED, device=dev)
+    first, last = float(pts.losses[0]), float(pts.losses[-1])
+    point_s = (time.perf_counter() - t0) / len(pts.losses)
+    log(f"[optimize/points] {pts.points.shape[0]} points, 512x512, {len(pts.losses)} steps: loss "
+        f"{first:.6g} -> {last:.6g}, {point_s:.5f} s/step")
+    if not (last < first and torch.isfinite(pts.points).all()):
+        raise AssertionError("optimize_point_pattern did not lower its loss")
+    return launches
+
+
+def datagen_phase(dev) -> tuple[dict, dict]:
+    """The dataset farm's AOVs (`render/integrators.py`) on the main shape
+    at a 128x32 film, 2 variants, on the card against the CPU path (plain
+    versions): `render_segmentation` equal on every pixel but t-ties
+    (depths within 1e-5), at most 1e-4 of the pixels; `render_depth`
+    within 1e-5 relative where both hit; `render_from_laser` (the 144 beams
+    from the projector, B3) with equal valid masks and depth within 1e-5.
+    Then one `main_path.datagen_batch` dispatch (the farm's render at spp 4
+    on the face-table route, blur, clip, segmentation), counted: B1 and B3
+    and no other; then bench's datagen row at its full parameters (512^2,
+    spp 4, batch 8, 32 accepted frames), its JSON line printed, counted
+    the same way.  Returns (the dispatch's launches, the row's)."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import bench, main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.projection import laser  # noqa: PLC0415
+    from fireflies_tpu_torch.render import RenderConfig, integrators  # noqa: PLC0415
+
+    bridge, randomize, beams = main_path.build(dev)
+    cfg = RenderConfig(width=128, height=32, spp=1, max_bounces=1)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        params = [randomize(torch.Generator(device=dev).manual_seed(s), s) for s in (7, 8)]
+        scene = bridge.assemble([{k: v.to(device) for k, v in p.items()} for p in params])
+        pose = scene.projector.to_world
+        b = beams.to(device)
+        lz = integrators.render_from_laser(scene, laser.origin_per_ray(pose, b.shape[0]),
+                                           laser.rays_to_world(b, pose), cfg)
+        outs.append([x.cpu() for x in (integrators.render_depth(scene, cfg),
+                                        integrators.render_segmentation(scene, cfg), *lz)])
+    (d_k, s_k, _, z_k, v_k, _), (d_p, s_p, _, z_p, v_p, _) = outs
+    both = (d_k > 0) & (d_p > 0)
+    d_rel = float(((d_k - d_p).abs() / d_p.clamp(min=1e-30))[both].max())
+    differ = s_k != s_p
+    tie = (d_k - d_p).abs() <= 1e-5 * d_p.abs()
+    z_err = float(((z_k - z_p).abs() / z_p.abs())[v_p].max()) if bool(v_p.any()) else 0.0
+    log(f"[datagen/aov] 128x32, 2 variants, CUDA against CPU plain: segmentation "
+        f"{int(differ.sum())} of {differ.numel()} pixels differ ({int((differ & ~tie).sum())} off a t-tie), ids "
+        f"{torch.unique(s_p).tolist()}; depth max relative {d_rel:.3g} on {int(both.sum())} hit "
+        f"pixels; laser {int(v_p.sum())} of {v_p.numel()} beams valid, masks "
+        f"{'equal' if torch.equal(v_k, v_p) else 'DIFFER'}, depth max relative {z_err:.3g}")
+    if bool((differ & ~tie).any()) or int(differ.sum()) > 1e-4 * differ.numel():
+        raise AssertionError("datagen: the CUDA segmentation disagrees with the CPU one")
+    if not (bool(both.any()) and d_rel <= 1e-5):
+        raise AssertionError("datagen: the CUDA depth disagrees with the CPU one")
+    if not (torch.equal(v_k, v_p) and bool(v_p.any()) and z_err <= 1e-5):
+        raise AssertionError("datagen: render_from_laser disagrees with the CPU one")
+
+    farm_cfg = RenderConfig(width=SIZE, height=SIZE, spp=4, max_bounces=2)
+    fn = main_path.datagen_batch(bridge, randomize, beams, farm_cfg)
+    out = {}
+    dispatch = count_launches(lambda: out.update(r=fn(list(range(8)), list(range(8)))))
+    img, seg = out["r"]
+    log(f"[datagen/dispatch] 8 frames at {SIZE}x{SIZE}, spp 4: images {tuple(img.shape)} in "
+        f"[{float(img.min()):.4g}, {float(img.max()):.4g}], segmentation ids "
+        f"{torch.unique(seg).tolist()}; launches {dispatch}")
+    check_launches("datagen", dispatch, (B1, B3))
+    if not (torch.isfinite(img).all() and img.max() > 0 and seg.max() > 0):
+        raise AssertionError("datagen: the dispatch's frames are empty or not finite")
+
+    t0 = time.perf_counter()
+    row = count_launches(lambda: out.update(line=bench.measure_datagen(device=dev)))
+    log(f"[bench] datagen row: {time.perf_counter() - t0:.1f} s; launches {row}")
+    print(json.dumps(out["line"]), flush=True)
+    check_launches("datagen row", row, (B1, B3))
+    return dispatch, row
 
 
 def probe_phase(dev) -> dict:
@@ -693,6 +875,7 @@ def mxu_phase(dev) -> dict:
 SIZE = 512
 BATCH = 16
 C2_VARIANTS = 4
+OPT_SEED, OPT_STEPS = 0, 3
 BENCH_REPEATS, BENCH_TRIALS = 3, 2
 MXU = "intersect_mxu_shared"
 B1, B3 = "intersect_shared_culled", "intersect_general"
@@ -756,7 +939,7 @@ def main() -> int:
             log("  " + line.strip())
 
     seeds = list(range(BATCH))
-    kres, launches, kernel_path = {}, {}, {}
+    kres, launches, kernel_path, path_launches = {}, {}, {}, {}
     # (shape in main_path.SHAPES, kernels of the path, replay only the first
     # launch of each (kernel, mode), plain versions' variants, kernel_phase
     # options)
@@ -792,6 +975,7 @@ def main() -> int:
             log("[geometry/reference]")
             reference_phase(bridge, randomize, beams, dev, face_table=True)
         counts = forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected)
+        path_launches[tag] = counts
         for name in expected:
             if name not in kernel_path:
                 kernel_path[name] = tag
@@ -811,6 +995,14 @@ def main() -> int:
             pattern_phase("texture", bridge, randomize, beams, seeds, cfg, dev, analytic=False)
             log(f"[texture] {time.perf_counter() - t_tex:.1f} s")
             c2_phase(bridge, randomize, beams, seeds[:C2_VARIANTS], cfg)
+
+    t_opt = time.perf_counter()
+    path_launches["optimize"] = optimize_phase(dev)
+    log(f"[optimize] {time.perf_counter() - t_opt:.1f} s")
+
+    t_farm = time.perf_counter()
+    path_launches["datagen"], path_launches["datagen_row"] = datagen_phase(dev)
+    log(f"[datagen] {time.perf_counter() - t_farm:.1f} s")
 
     t_mxu = time.perf_counter()
     x1 = mxu_phase(dev)
@@ -843,6 +1035,10 @@ def main() -> int:
             "any_hit_ms": any_hit["ms"], "any_hit_plain_ms": any_hit["plain_ms"],
             "any_hit_bound_ms": any_hit["bound_ms"],
             "any_hit_least_bound_ms": any_hit["least_bound_ms"],
+            # Counted launches on every path that runs the kernel: one
+            # forward batch of each shape, the optimizer's OPT_STEPS steps,
+            # one farm dispatch and bench's datagen row.
+            "launches_by_path": {p: c[name] for p, c in path_launches.items() if c[name]},
         }
         if "lists_ms" in closest:
             entry["tile_lists_ms"] = closest["lists_ms"]

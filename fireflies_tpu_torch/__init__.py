@@ -3,7 +3,9 @@
 The JAX package `fireflies_tpu` stays the reference; this package ports its
 main path (vocalfold randomize -> assemble -> render_rgb -> beam gradient)
 to PyTorch, with the ray/triangle intersection kernels written by hand in
-CUDA C++ for Hopper (`csrc/`, built on first use by `_build.py`).
+CUDA C++ for Hopper (`csrc/`, built on first use by `_build.py`), and the
+two loops users run around it: the pattern optimizer (`optim`) and the
+dataset farm (`datagen`, with the AOV integrators of `render.integrators`).
 
 Conventions that differ from the reference on purpose:
   * scene tensors carry a leading variant axis B (one geometry per variant),

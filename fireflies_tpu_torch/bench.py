@@ -26,26 +26,39 @@ translation of the path-traced L2 plus a 256x256 soft-silhouette L2
 against targets rendered once, untimed, over a fixed batch of variants;
 windows chain delta = delta + 1e-20 * grad.
 
+`measure_datagen` (`--datagen`, VARIANTS' `datagen=1` row) is the
+counterpart of `bench.py::measure_datagen`: the dataset farm's accepted
+frames/s, `datagen.generate_dataset` timed end to end after one untimed
+warm-up dispatch (render, blur, clip, segmentation, a host readback every
+dispatch, the rejection filter and the PNG writes), with peak device
+memory and the dispatches' share of the time.  Its frames go to a
+temporary directory, deleted after; the line carries the manifest (frame
+count and one sha256 over the frames' own).
+
 The measurement runs on the card unless the caller passes device="cpu"
 (`--device cpu`), which the tests do at a tiny size; the result names its
 device.  Rows of VARIANTS that the port cannot run yet print a line naming
-the refusal.  Nothing is written to disk.
+the refusal.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import math
 import statistics
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
-from fireflies_tpu_torch import main_path
+from fireflies_tpu_torch import datagen, main_path
 from fireflies_tpu_torch.perf_probe import nvidia_smi
+from fireflies_tpu_torch.render import RenderConfig
 
 
 def step_seeds(trial: int, i: int, batch: int) -> list[int]:
@@ -175,8 +188,72 @@ def measure(size: int = 512, spp: int = 1, bounces: int = 2, repeats: int = 20,
     }
 
 
+DATAGEN_SEED = 0  # generate_dataset's seed
+DATAGEN_WARMUP_SEED = 99  # the warm-up dispatch's frame seeds: from here
+
+
+def measure_datagen(size: int = 512, spp: int = 4, resolution: int = 24, batch: int = 8,
+                    n_frames: int = 32, device="cuda") -> dict:
+    """Dataset-farm throughput at the reference's shape (512^2, spp 4,
+    vocalfold 1440 faces, batch 8, 32 accepted frames, RenderConfig's
+    default face-table route, the analytic projector): accepted frames a
+    second of `datagen.generate_dataset` over `main_path.datagen_batch`,
+    after one untimed warm-up dispatch; the result line as a dict."""
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to measure on the CPU")
+    bridge, randomize, rays0 = main_path.build(dev, resolution=resolution)
+    cfg = RenderConfig(width=size, height=size, spp=spp, max_bounces=2)
+    n_faces = len(bridge._faces)
+    farm_batch = main_path.datagen_batch(bridge, randomize, rays0, cfg)
+    render_s = []
+
+    def render_batch(seeds, steps):
+        """A dispatch read back to the host, its wall time kept."""
+        t0 = time.perf_counter()
+        out = tuple(x.cpu() for x in farm_batch(seeds, steps))
+        render_s.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as td:
+        render_batch(list(range(DATAGEN_WARMUP_SEED, DATAGEN_WARMUP_SEED + batch)),
+                     list(range(batch)))  # warm-up, read back
+        render_s.clear()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        got = datagen.generate_dataset(render_batch, n_frames=n_frames, out_dir=td,
+                                       seed=DATAGEN_SEED, batch=batch)
+        dt = time.perf_counter() - t0
+        frames = sorted((Path(td) / "images").glob("*.png"))
+        hashes = [hashlib.sha256(f.read_bytes()).hexdigest()[:16] for f in frames]
+    fps = got / dt
+    return {
+        "metric": (f"{size}x{size} dataset-farm frames/sec/chip (vocalfold {n_faces} faces, "
+                   f"spp={spp}, render+seg+postproc+rejection+png, analytic-projector)"),
+        "value": round(fps, 3),
+        "unit": "frames/sec/chip",
+        "detail": {
+            "faces": n_faces, "spp": spp, "batch": batch, "size": size,
+            "frames_accepted": got, "seconds": round(dt, 3), "dispatches": len(render_s),
+            # the dispatches' render and readback; the rest is the host's
+            # rejection filter and PNG writes
+            "render_seconds": round(sum(render_s), 3),
+            "route": "analytic-beam-splat", "static_geometry": cfg.static_geometry,
+            "manifest": {"n_frames": got,
+                         "sha256": hashlib.sha256("".join(hashes).encode()).hexdigest()},
+            "peak_device_memory_gib": (round(torch.cuda.max_memory_allocated(dev) / 2**30, 3)
+                                       if on_card else None),
+            "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
+            "card": nvidia_smi() if on_card else None,
+        },
+    }
+
+
 # bench.py's VARIANTS (bench.py:637-692), in its keys, which are measure's
-# arguments but for the refused ones below.
+# arguments but for the refused ones below; `datagen=1` is measure_datagen
+# at its defaults.
 VARIANTS = [
     dict(),
     dict(analytic=0),
@@ -208,8 +285,6 @@ def refusal(row: dict) -> str | None:
     if row.get("grad_mode", "beams") not in ("beams", "pose_soft"):
         return (f"grad_mode={row['grad_mode']} (warped-area reparameterization, "
                 "RenderConfig.reparam) is not ported")
-    if row.get("datagen", 0):
-        return "the dataset farm (datagen) is not ported"
     return None
 
 
@@ -225,7 +300,10 @@ def run_variants(device="cuda") -> int:
             line["refused"] = why
         else:
             try:
-                line.update(measure(**row, device=device))
+                if row.get("datagen", 0):
+                    line.update(measure_datagen(device=device))
+                else:
+                    line.update(measure(**row, device=device))
             except torch.cuda.OutOfMemoryError as exc:
                 failed += 1
                 line["error"] = f"out of device memory: {str(exc).splitlines()[0]}"
@@ -239,6 +317,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", action="store_true",
                     help="one line for each row of VARIANTS (the row options are ignored)")
+    ap.add_argument("--datagen", action="store_true",
+                    help="the dataset-farm row at its defaults (the row options are ignored)")
     ap.add_argument("--device", default="cuda")
     for name, p in inspect.signature(measure).parameters.items():
         if name != "device":
@@ -247,6 +327,9 @@ def main(argv=None) -> int:
     args = vars(ap.parse_args(argv))
     if args.pop("variants"):
         return 1 if run_variants(args["device"]) else 0
+    if args.pop("datagen"):
+        print(json.dumps(measure_datagen(device=args["device"])), flush=True)
+        return 0
     print(json.dumps(measure(**args)), flush=True)
     return 0
 

@@ -27,6 +27,15 @@ targets rendered once):
 
     targets = pose_targets(bridge, randomize, beams, seeds, cfg)
     loss, grad = pose_step(bridge, randomize, beams, delta, seeds, targets, cfg)
+
+Around the render run the two loops users run: the pattern optimizer
+(`variant_loss` for `optim.optimize_pattern_through_render`, each step's
+variants randomized at that step's index) and the dataset farm
+(`datagen_batch` for `datagen.generate_dataset`, consecutive frame steps):
+
+    loss_fn = variant_loss(bridge, randomize, cfg, optim.dot_coverage_objective(1))
+    res = optim.optimize_pattern_through_render(loss_fn, beams, seed, steps, batch)
+    n = datagen.generate_dataset(datagen_batch(bridge, randomize, beams, cfg), ...)
 """
 
 from __future__ import annotations
@@ -34,9 +43,15 @@ from __future__ import annotations
 import torch
 
 from fireflies_tpu_torch.assets import scenes
-from fireflies_tpu_torch.optim import hybrid_pose_loss
+from fireflies_tpu_torch.optim import hybrid_pose_loss, make_variant_loss
+from fireflies_tpu_torch.postprocessing import gaussian_blur2d
 from fireflies_tpu_torch.projection import laser
-from fireflies_tpu_torch.render import RenderConfig, SceneBridge, render_rgb
+from fireflies_tpu_torch.render import (
+    RenderConfig,
+    SceneBridge,
+    render_rgb,
+    render_segmentation,
+)
 from fireflies_tpu_torch.render.soft import render_soft_silhouette
 
 Tensor = torch.Tensor
@@ -113,11 +128,14 @@ def projector_params(beams: Tensor, analytic: bool = True) -> dict:
                                                   texture_size=BEAM_TEXTURE, blur_kernel=0)}
 
 
-def scene_batch(bridge: SceneBridge, randomize, beams: Tensor, gens, analytic: bool = True):
+def scene_batch(bridge: SceneBridge, randomize, beams: Tensor, gens, analytic: bool = True,
+                steps=None):
     """The RenderScene of one randomized variant per generator, each with
-    the beam pattern's projector attached."""
+    the beam pattern's projector attached; variant i randomized at
+    `steps[i]` (all at step 0 without `steps`)."""
     proj = projector_params(beams, analytic)
-    return bridge.assemble([dict(randomize(g, 0), **proj) for g in gens])
+    steps = [0] * len(gens) if steps is None else steps
+    return bridge.assemble([dict(randomize(g, s), **proj) for g, s in zip(gens, steps)])
 
 
 def render_batch(bridge: SceneBridge, randomize, beams: Tensor, seeds,
@@ -139,6 +157,39 @@ def pattern_step(bridge: SceneBridge, randomize, beams: Tensor, seeds,
     loss = img.mean(dim=(1, 2, 3)).mean()
     loss.backward()
     return loss.detach(), beams.grad
+
+
+def variant_loss(bridge: SceneBridge, randomize, cfg: RenderConfig, objective,
+                 analytic: bool = True):
+    """`optim.make_variant_loss` on this scene: loss(rays, gens, step) ->
+    (B,), every generator's variant randomized at `step`, the beams'
+    projector attached (`projector_params`), rendered in one batch and
+    reduced by `objective` image by image."""
+    return make_variant_loss(randomize, bridge.assemble,
+                             lambda scene, gens: render_rgb(scene, gens, cfg), objective,
+                             pattern_params_fn=lambda rays: projector_params(rays, analytic))
+
+
+# The dataset farm's post-processing (bench.py's measure_datagen): a 3x3
+# Gaussian blur of sigma 0.8, then a clip to [0, 1].
+FARM_BLUR = ((3, 3), (0.8, 0.8))
+
+
+def datagen_batch(bridge: SceneBridge, randomize, beams: Tensor, cfg: RenderConfig):
+    """render_batch_fn(seeds, steps) for `datagen.generate_dataset`: frame
+    i randomized from a generator seeded seeds[i] at steps[i], rendered
+    with the analytic projector, blurred and clipped (FARM_BLUR), and its
+    segmentation; returns (images (B, H, W, 3), segmentations (B, H, W)
+    int32) on the device, without autograd."""
+
+    def render_batch_fn(seeds, steps):
+        with torch.no_grad():
+            gens = generators(seeds, beams.device)
+            scene = scene_batch(bridge, randomize, beams, gens, steps=steps)
+            img = gaussian_blur2d(render_rgb(scene, gens, cfg), *FARM_BLUR).clamp(0.0, 1.0)
+            return img, render_segmentation(scene, cfg)
+
+    return render_batch_fn
 
 
 SOFT_SIZE = 256  # the soft silhouette's film, bench.py's BENCH_SOFT_SIZE

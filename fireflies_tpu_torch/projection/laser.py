@@ -6,6 +6,9 @@ direction vectors (K, 3).  Two projector routes carry the pattern into
 SceneBridge.assemble, both differentiable with respect to the beam
 directions: `rays_to_beam_params` gives the analytic beam-splat entries,
 `rays_to_texture_rgb` the rasterized (H, W, 3) texture for "tex.data".
+The pure ray operations place beams in the world and keep an optimized
+pattern inside the projector's field of view (`clamp_rays_to_fov`, and the
+respawns, which draw fresh beams from a torch.Generator).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 from fireflies_tpu_torch.graphics import rasterization
 from fireflies_tpu_torch.postprocessing import gaussian_blur2d
-from fireflies_tpu_torch.projection.camera import directions_to_ndc
+from fireflies_tpu_torch.projection.camera import directions_to_ndc, ndc_to_directions
 from fireflies_tpu_torch.utils import math as ffmath
 
 Tensor = torch.Tensor
@@ -32,6 +35,48 @@ def generate_uniform_rays(intra_ray_angle: float, num_beams_x: int, num_beams_y:
     gx, gy = torch.meshgrid(tx, ty, indexing="ij")
     d = torch.stack([gx.reshape(-1), gy.reshape(-1), -torch.ones_like(gx.reshape(-1))], -1)
     return ffmath.normalize_vectors(d)
+
+
+def rays_to_world(rays_local: Tensor, to_world: Tensor) -> Tensor:
+    """Local beam directions (..., K, 3) -> unit world directions under the
+    pose `to_world` (..., 4, 4)."""
+    return ffmath.normalize_vectors(ffmath.transform_directions(rays_local, to_world))
+
+
+def origin_per_ray(to_world: Tensor, n: int) -> Tensor:
+    """The pose's origin repeated for n beams: (..., n, 3)."""
+    origin = to_world[..., :3, 3]
+    return origin[..., None, :].expand(*origin.shape[:-1], n, 3)
+
+
+def clamp_rays_to_fov(rays_local: Tensor, fov_deg: float, clamp_val: float = 0.95) -> Tensor:
+    """Pull beams outside the frustum back to the NDC border +-clamp_val."""
+    ndc = directions_to_ndc(rays_local, fov_deg).clamp(-clamp_val, clamp_val)
+    return ndc_to_directions(ndc, fov_deg)
+
+
+def _respawn(gen: torch.Generator, rays_local: Tensor, oob: Tensor, fov_deg: float) -> Tensor:
+    """The beams with `oob` rows replaced by fresh NDC points, uniform in
+    [-1, 1)^2 (drawn for every row from `gen`, which lives on the rays'
+    device)."""
+    fresh = torch.rand((rays_local.shape[0], 2), generator=gen, device=rays_local.device) * 2 - 1
+    ndc = torch.where(oob[:, None], fresh, directions_to_ndc(rays_local, fov_deg))
+    return ndc_to_directions(ndc, fov_deg)
+
+
+def respawn_out_of_bounds(gen: torch.Generator, rays_local: Tensor, fov_deg: float) -> Tensor:
+    """Replace beams outside the projector's NDC square with fresh uniform
+    ones; the others keep their NDC point."""
+    oob = (directions_to_ndc(rays_local, fov_deg).abs() >= 1.0).any(dim=-1)
+    return _respawn(gen, rays_local, oob, fov_deg)
+
+
+def respawn_out_of_camera(gen: torch.Generator, rays_local: Tensor, camera_ndc: Tensor,
+                          fov_deg: float) -> Tensor:
+    """Replace beams whose camera-space NDC point `camera_ndc` (K, 2+) left
+    the camera's view with fresh uniform ones."""
+    oob = (camera_ndc[:, :2].abs() >= 1.0).any(dim=-1)
+    return _respawn(gen, rays_local, oob, fov_deg)
 
 
 def rays_to_beam_params(

@@ -1,6 +1,14 @@
 """Renderer: scene bridge, data model and path tracer."""
 
 from fireflies_tpu_torch.render.bridge import SceneBridge
+from fireflies_tpu_torch.render.integrators import (
+    random_depth_maps,
+    render_depth,
+    render_depth_differentiable,
+    render_from_laser,
+    render_segmentation,
+    render_shape_index,
+)
 from fireflies_tpu_torch.render.pathtracer import render_rgb, trace_rays
 from fireflies_tpu_torch.render.types import (
     Camera,
@@ -16,6 +24,12 @@ from fireflies_tpu_torch.render.types import (
 __all__ = [
     "SceneBridge",
     "render_rgb",
+    "render_depth",
+    "render_depth_differentiable",
+    "render_segmentation",
+    "render_shape_index",
+    "render_from_laser",
+    "random_depth_maps",
     "trace_rays",
     "Camera",
     "Geometry",

@@ -47,7 +47,7 @@ from fireflies_tpu_torch.render.cuda import (
     intersect_stream,
 )
 from fireflies_tpu_torch.render.types import Geometry, Hit
-from fireflies_tpu_torch.render.vec3 import Vec3
+from fireflies_tpu_torch.render.vec3 import Vec3, from_array
 from fireflies_tpu_torch.render.vec3 import where as v3_where
 
 Tensor = torch.Tensor
@@ -260,6 +260,24 @@ def occluded_any(o: Tensor, d: Tensor, geometry: Geometry, t_min: float = 1e-4, 
     else:
         _, prim = _general(o, d, geometry, t_min, t_max, True, general_chunk, tile_cull)
     return prim >= 0
+
+
+def hit_attributes(o: Tensor, d: Tensor, hit: Hit, geometry: Geometry) -> dict:
+    """The reference's flat form of the hit attributes: o, d (B, N, 3) ->
+    position, unit geometric normal (B, N, 3), t, u, v, mat_id, mesh_id
+    (B, N); with `geometry.uvs` uv (B, N, 2) and the tangent, with
+    `geometry.normals` the smooth_normal.  `hit_attributes_table` over the
+    geometry's face table, so differentiable with respect to the vertices
+    and the rays; miss lanes are pinned (mask them with hit.valid).
+    """
+    attrs = hit_attributes_table(from_array(o), from_array(d), hit, build_face_table(geometry),
+                                 has_uvs=geometry.uvs is not None,
+                                 has_normals=geometry.normals is not None)
+    out = {k: v.to_array() if isinstance(v, Vec3) else v for k, v in attrs.items()
+           if k not in ("uv_x", "uv_y")}
+    if "uv_x" in attrs:
+        out["uv"] = torch.stack([attrs["uv_x"], attrs["uv_y"]], dim=-1)
+    return out
 
 
 def build_face_table(geometry: Geometry) -> Tensor:

@@ -81,6 +81,14 @@ def pixel_to_ndc(px: Tensor, py: Tensor, width: int, height: int) -> Tensor:
     return torch.stack([x, y], dim=-1)
 
 
+def ndc_to_pixel(ndc: Tensor, width: int, height: int) -> Tensor:
+    """NDC (..., 2+) -> continuous pixel coords (..., 2) as (px, py); the
+    inverse of pixel_to_ndc."""
+    px = (ndc[..., 0] + 1.0) * 0.5 * width
+    py = (1.0 - ndc[..., 1]) * 0.5 * height
+    return torch.stack([px, py], dim=-1)
+
+
 def rays_from_ndc(camera: Camera, ndc: Tensor):
     """NDC points (B, N, 2) -> world-space rays (o, d), each (B, N, 3)."""
     tan_half = torch.tan(torch.deg2rad(camera.fov) / 2.0)[:, None]

@@ -120,5 +120,6 @@ def test_bench_measure_cpu_line():
     spread = detail["renders_per_sec_dispersion"]
     assert spread["trials"] == 1 and spread["min"] == spread["max"] == line["value"]
     refused = [row for row in bench.VARIANTS if bench.refusal(row)]
-    assert len(bench.VARIANTS) == 22 and len(refused) == 3
+    assert len(bench.VARIANTS) == 22 and len(refused) == 2
     assert all("not ported" in bench.refusal(row) for row in refused)
+    assert all(row.get("grad_mode") == "pose_reparam" for row in refused)
