@@ -31,7 +31,16 @@ texture route (`analytic=False`: the beams rasterized once a step into a
 256x256 projector texture, bench.py's `analytic=0` rows) runs too, on B1
 and B3, and `bench.measure` gives diff-renders/s, the reference's unit.
 Two loops around the render run on B1 and B3 at the main shape too: the
-pattern optimizer (`optimize`) and the dataset farm (`datagen`).
+pattern optimizer (`optimize`) and the dataset farm (`datagen`).  Two more
+paths drive the rest of the renderer's shading (`main_path.BUILDERS`):
+`materials`, the reference's farm scene (vocalfold resolution 24 with
+examples/vocalfold_scene.py's randomization: clearcoat, roughness and sheen
+on the mucosa, a grey spot intensity) with base-colour, roughness and
+normal maps (the face-table route; B1 and B3), and `emitters`, cornell_like
+with a glass sphere (9046 faces), a thin translucent box, anisotropic and
+flat walls, an area light, a point light's aperture and an envmap with its
+NEE (B2 for camera rays, B4 for bounce rays and, from per-ray origins, for
+the aperture, envmap and area-light shadow rays).
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: the card's name and power limit; CUDA must be available;
@@ -72,6 +81,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      accumulated gradient on 4 variants, within 1e-5 relative (1e-5 of the
      largest component absolute), as tests/test_torch_render_texture.py
      holds it on the CPU;
+  then the two shading paths at 512x512, batch 16:
+  materials (spp 1, 2 bounces): phase 3 on the first launch of each kernel
+     and mode (plain on 2 variants, not timed); CUDA against the CPU plain
+     path on 2 variants at 128x32, 2 bounces, the same generators (film
+     means within 1e-5 relative, images within 1e-4 of the image's scale on
+     >= 99.9% of pixels, the beam gradient within 1e-3 relative L2); phase
+     5 (B1 and B3, no other; with peak memory); phase 6;
+  emitters (spp 4, shared primary, 3 bounces): phase 3 on the first
+     closest-hit launch of B2 and B4 and B4's first three any-hit launches
+     (vertex 0's aperture, envmap and area-light shadow rays, 0 mismatches);
+     CUDA against the CPU plain path at 128x32, 2 variants, 2 bounces, as
+     on materials, with the gradient of the mean image to the floor's
+     texture and the sphere's roughness; phase 5 (B2 and B4, no other);
   then the two loops, each with every counter set to 0 just before it and
   read just after (B1 and B3 launched, no other kernel):
   optimize: `optim.optimize_pattern_through_render` over
@@ -111,7 +133,9 @@ Phases (each raises on failure, so any failure exits non-zero):
 Then one JSON line with the kernels (each with its fused operations per
 tested pair, `ops_per_pair`, its counted launches on every path that runs
 it, `launches_by_path`, and for the nine intersection kernels
-`least_pairs` and `least_bound_ms`; for X1 beside them its tensor-core
+`least_pairs` and `least_bound_ms`, and for each path beyond its own that
+replays it (geometry, reference_geometry, materials, emitters) its cases,
+mismatches and times (B4's any-hit times on emitters); for X1 beside them its tensor-core
 multiply-adds and reciprocals per pair and the bounds with d' on the FP32
 pipe; for X2 its
 unfused operations per element and round; the script fails if a kernel ran
@@ -273,13 +297,14 @@ def _first(rec: dict, n: int) -> dict:
     return {k: v[:n].contiguous() if isinstance(v, torch.Tensor) else v for k, v in rec.items()}
 
 
-def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None,
+def kernel_phase(path: str, drive, per_mode: dict | None, plain_variants: int | None,
                  modes=("closest", "any"), replay_any: bool = True,
                  time_plain: bool = True) -> dict:
     """Each kernel against its plain version on the inputs a path gives it:
-    one forward batch records every launch's inputs, and each (or, with
-    `first_only`, the first of each kernel and mode) of `modes` is replayed
-    through the kernel and the plain version, the latter on the first
+    one forward batch records every launch's inputs, and each launch of
+    `modes` (with `per_mode`, the first per_mode[mode] of each kernel and
+    mode) is replayed through the kernel and the plain version, the latter
+    on the first
     `plain_variants` variants when given.  With `replay_any` each
     closest-hit launch is replayed as any-hit too, since the scene casts no
     shadow where an emitter lights it and a path's own any-hit launches
@@ -303,12 +328,13 @@ def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None,
         if not recorded:
             continue
         kernel_fn, plain_fn, lists_fn = table[name]
-        cases, seen = [], set()
+        cases, seen = [], {"closest": 0, "any": 0}
+        limit = per_mode or {}
         for i, rec in enumerate(recorded):
             mode = "any" if rec["any_hit"] else "closest"
-            if mode not in modes or (first_only and mode in seen):
+            if mode not in modes or seen[mode] >= limit.get(mode, len(recorded)):
                 continue
-            seen.add(mode)
+            seen[mode] += 1
             cases.append((f"{path}/{name}/{mode}#{i}", rec, False))
             if replay_any and not rec["any_hit"]:
                 cases.append((f"{path}/{name}/{mode}#{i}/as-any",
@@ -344,54 +370,76 @@ def kernel_phase(path: str, drive, first_only: bool, plain_variants: int | None,
     return results
 
 
-def reference_phase(bridge, randomize, beams, dev, analytic: bool = True,
-                    face_table: bool = False) -> None:
-    """A small deterministic render (pixel-centre rays, one bounce) through
-    the CUDA kernels against the same render through the plain versions on
-    the CPU: within 1e-4 of the image max on >= 99.9% of pixels.  With
-    `analytic=False` the projector is the texture route's.  With
-    `face_table` the render takes the face-table attribute route
-    (`static_geometry=False`), and the gradient of its mean image with
-    respect to a (3,) translation of every vertex must agree within 1e-3
-    relative L2 (the face table's row gather adds back atomically on the
-    card)."""
+def reference_phase(tag, bridge, randomize, beams, dev, cfg, analytic: bool = True,
+                    grad=()) -> None:
+    """Two variants rendered with `cfg` (a 128x32 film) on the card and
+    through the plain versions on the CPU, from the same parameters and
+    the same generators (`rays.HostDraws`: both renders take the same
+    camera, bounce, aperture, envmap and area-light draws): each variant's
+    film mean within 1e-5 relative, and the pixels within 1e-4 of the
+    image's scale (the 99.9th percentile pixel, or a brighter pixel's own
+    value) on >= 99.9% of them.  With `analytic=False` the projector is the
+    texture route's.  `grad` names the leaves of the mean image's gradient,
+    each shared by both variants: "beams" (the (144, 3) beams),
+    "translation" (a (3,) translation of every vertex) or a param key; each
+    gradient finite, nonzero and within 1e-3 relative L2 (the texture
+    lookups and face-table rows add back atomically on the card)."""
     import torch  # noqa: PLC0415
 
     from fireflies_tpu_torch import main_path  # noqa: PLC0415
-    from fireflies_tpu_torch.render import RenderConfig, pathtracer, rays  # noqa: PLC0415
+    from fireflies_tpu_torch.render import render_rgb  # noqa: PLC0415
+    from fireflies_tpu_torch.render.rays import HostDraws  # noqa: PLC0415
 
-    cfg = RenderConfig(width=128, height=32, spp=1, max_bounces=1,
-                       static_geometry=not face_table)
-    imgs, grads = [], []
-    for device in (dev, torch.device("cpu")):
-        params = randomize(torch.Generator(device=dev).manual_seed(7), 0)
-        params = {k: v.to(device) for k, v in params.items()}
-        params.update(main_path.projector_params(beams.to(device), analytic))
-        scene = bridge.assemble(params)
-        delta = torch.zeros(3, device=device, requires_grad=face_table)
-        geo = scene.geometry
-        scene = scene.replace(geometry=geo.replace(vertices=geo.vertices + delta))
-        o, d, _ = rays.camera_rays_tiled(scene.camera, cfg.width, cfg.height)
-        with torch.set_grad_enabled(face_table):
-            img = pathtracer.trace_rays(scene, o, d, None, cfg,
-                                        primary_origin=scene.camera.to_world[:, :3, 3])
-        if face_table:
+    base = [randomize(torch.Generator(device=dev).manual_seed(s), 0) for s in (7, 8)]
+
+    def run(device):
+        params = [{k: v.to(device) for k, v in p.items()} for p in base]
+        leaves = {}
+        for name in grad:
+            if name == "beams":
+                leaves[name] = beams.detach().to(device).requires_grad_(True)
+            elif name == "translation":
+                leaves[name] = torch.zeros(3, device=device, requires_grad=True)
+            else:
+                leaves[name] = params[0][name].detach().clone().requires_grad_(True)
+        for p in params:
+            p.update({k: v for k, v in leaves.items() if k not in ("beams", "translation")})
+            if "translation" in leaves:
+                p.update({k: v + leaves["translation"] for k, v in p.items()
+                          if k.endswith(".vertex_positions")})
+            p.update(main_path.projector_params(leaves.get("beams", beams.to(device)), analytic))
+        gens = HostDraws(torch.Generator().manual_seed(100 + s) for s in (7, 8))
+        with torch.set_grad_enabled(bool(grad)):
+            img = render_rgb(bridge.assemble(params), gens, cfg)
+        if grad:
             img.mean().backward()
-            grads.append(delta.grad.cpu())
-        imgs.append(img.detach().cpu())
-    img_k, img_p = imgs
-    bad = ((img_k - img_p).abs().amax(-1) > 1e-4 * img_p.abs().max()).float().mean().item()
-    log(f"  CUDA vs CPU plain path (128x32, 1 bounce{', face table' if face_table else ''}): "
-        f"{bad:.2e} of pixels beyond 1e-4 of max")
-    if not (torch.isfinite(img_k).all() and img_p.max() > 0 and bad <= 1e-3):
-        raise AssertionError("CUDA render disagrees with the plain-version render")
-    if face_table:
-        g_k, g_p = grads
+        return img.detach().cpu(), [leaf.grad.cpu() for leaf in leaves.values()]
+
+    (img_k, grads_k), (img_p, grads_p) = run(dev), run(torch.device("cpu"))
+    # 1e-4 of the image's scale: its 99.9th percentile pixel, so that a
+    # highlight (a glossy view of a bright envmap texel) does not loosen
+    # every other pixel, or the pixel's own value where it is brighter.
+    level = img_p.abs().amax(-1)
+    scale = torch.maximum(torch.quantile(level.flatten(), 0.999), level)
+    bad = ((img_k - img_p).abs().amax(-1) > 1e-4 * scale).float().mean().item()
+    mean_k, mean_p = img_k.mean(dim=(1, 2, 3)), img_p.mean(dim=(1, 2, 3))
+    mean_rel = float(((mean_k - mean_p).abs() / mean_p).max())
+    log(f"  CUDA vs CPU plain path ({cfg.width}x{cfg.height}, 2 variants, spp {cfg.spp}, "
+        f"{cfg.max_bounces} bounces, static_geometry {cfg.static_geometry}, "
+        f"{'analytic' if analytic else 'texture'} projector, the same generators): {bad:.2e} of "
+        f"pixels beyond 1e-4 of the image's scale (its 99.9th percentile "
+        f"{float(scale.min()):.4g}, max {img_p.max().item():.4g}); film means {mean_k.tolist()} "
+        f"against {mean_p.tolist()}, {mean_rel:.3g} relative")
+    failed = [] if (torch.isfinite(img_k).all() and img_p.max() > 0 and bad <= 1e-3
+                    and mean_rel <= 1e-5) else ["the render"]
+    for name, g_k, g_p in zip(grad, grads_k, grads_p):
         rel = float((g_k - g_p).norm() / g_p.norm())
-        log(f"  translation gradient {g_k.tolist()} against {g_p.tolist()}, relative L2 "
-            f"{rel:.3g}")
+        log(f"  gradient of the mean image to {name} {tuple(g_p.shape)}: |grad| "
+            f"{g_k.norm().item():.6g} against {g_p.norm().item():.6g}, relative L2 {rel:.3g}")
         if not (torch.isfinite(g_k).all() and g_p.abs().max() > 0 and rel <= 1e-3):
-            raise AssertionError("CUDA translation gradient disagrees with the plain-version one")
+            failed.append(f"the gradient to {name}")
+    if failed:
+        raise AssertionError(f"{tag}: the CUDA path disagrees with the CPU plain path: {failed}")
 
 
 def pose_phase(tag, bridge, randomize, beams, seeds, cfg, dev) -> None:
@@ -471,6 +519,7 @@ def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected,
     times = []
     with torch.no_grad():
         main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -478,8 +527,9 @@ def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected,
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
     med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{tag}/forward] {len(seeds) / med:.4f} renders/s (median batch {med:.4f} s; "
-        f"batches {[round(t, 4) for t in times]})")
+        f"batches {[round(t, 4) for t in times]}), peak {peak:.3f} GiB")
     return launches
 
 
@@ -532,6 +582,67 @@ def c2_phase(bridge, randomize, beams, seeds, cfg) -> None:
         raise AssertionError("C2: the per-variant gradient is not finite and nonzero")
     torch.testing.assert_close(loss, loss_loop, rtol=1e-5, atol=0.0)
     torch.testing.assert_close(grad, leaf.grad, rtol=1e-5, atol=1e-5 * scale)
+
+
+def materials_phase(dev, seeds) -> tuple[dict, dict]:
+    """The `materials` shape (`main_path.build_materials`: the reference's
+    farm scene with its randomization and material maps, face-table route):
+    its first closest-hit and any-hit launch of each kernel replayed against
+    the plain version (2 variants); CUDA against the CPU plain path
+    (`reference_phase`, 2 bounces, the beam gradient); a counted
+    forward (B1 and B3, no other) with renders/s and peak memory; one
+    pattern step.  Returns (the replays, the forward's launches)."""
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    bridge, randomize, beams, cfg = main_path.build_shape("materials", dev, SIZE)
+    log(f"[materials/kernels] {len(seeds)} variants x {SIZE}x{SIZE} rays, spp {cfg.spp}, "
+        f"{cfg.max_bounces} bounces, {len(bridge._faces)} faces, lobes "
+        f"{sorted(bridge._lobe_flags)}, maps on {sorted(bridge._texture_mats)} (base colour) "
+        f"and {[sorted(m) for m in bridge._static_maps.values()]} (roughness, normal)")
+    res = kernel_phase("materials", lambda: main_path.render_batch(bridge, randomize, beams, seeds,
+                                                                   cfg), FIRST, 2,
+                       replay_any=False, time_plain=False)
+    log("[materials/reference]")
+    reference_phase("materials", bridge, randomize, beams, dev, cfg.replace(width=128, height=32),
+                    grad=("beams",))
+    counts = forward_phase("materials", bridge, randomize, beams, seeds, cfg, (B1, B3))
+    pattern_phase("materials", bridge, randomize, beams, seeds, cfg, dev)
+    return res, counts
+
+
+EMITTER_GRAD_KEYS = ("mat-mesh-floor.base_color.data", "mat-sphere.roughness")
+
+
+def emitters_phase(dev, seeds) -> tuple[dict, dict]:
+    """The `emitters` shape (`main_path.build_emitters`: cornell_like with
+    glass, thin, anisotropic and flat materials, an area light, a point
+    light's aperture and an envmap; 9046 faces, the streamed route): the
+    first closest-hit launch of each kernel and the first three any-hit
+    launches of B4 (vertex 0's aperture, envmap and area-light shadow rays,
+    per-ray origins with t_max 1 - 1e-4, 1e30 and 1 - 1e-3, -1 where dead)
+    replayed against the plain versions (2 variants, 0 any-hit mismatches);
+    CUDA against the CPU plain path at 2 bounces with the gradient of the
+    mean image to the floor's texture and the sphere's roughness
+    (`reference_phase`); a counted forward (B2 and B4, no other)
+    with renders/s and peak memory.  Returns (the replays, the forward's
+    launches)."""
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    bridge, randomize, beams, cfg = main_path.build_shape("emitters", dev, SIZE)
+    log(f"[emitters/kernels] {len(seeds)} variants x {SIZE}x{SIZE} rays, spp {cfg.spp}, shared "
+        f"primary, {cfg.max_bounces} bounces, {len(bridge._faces)} faces, lobes "
+        f"{sorted(bridge._lobe_flags)}, {len(bridge._emissive_faces)} emissive faces, envmap "
+        f"{bridge._background.shape}")
+    res = kernel_phase("emitters", lambda: main_path.render_batch(bridge, randomize, beams, seeds,
+                                                                  cfg), {"closest": 1, "any": 3}, 2,
+                       replay_any=False, time_plain=False)
+    if sum(r["any_hit"] and r["kernel"] == B4 for r in res.values()) != 3:
+        raise AssertionError("emitters: B4's aperture, envmap and area-light launches not replayed")
+    log("[emitters/reference]")
+    reference_phase("emitters", bridge, randomize, beams, dev,
+                    cfg.replace(width=128, height=32, spp=1, max_bounces=2), grad=EMITTER_GRAD_KEYS)
+    counts = forward_phase("emitters", bridge, randomize, beams, seeds, cfg, (B2, B4))
+    return res, counts
 
 
 def bench_phase() -> list[dict]:
@@ -875,6 +986,7 @@ def mxu_phase(dev) -> dict:
 SIZE = 512
 BATCH = 16
 C2_VARIANTS = 4
+FIRST = {"closest": 1, "any": 1}  # kernel_phase: replay the first launch of each mode
 OPT_SEED, OPT_STEPS = 0, 3
 BENCH_REPEATS, BENCH_TRIALS = 3, 2
 MXU = "intersect_mxu_shared"
@@ -921,6 +1033,7 @@ def main() -> int:
 
     from fireflies_tpu_torch import _build, main_path  # noqa: PLC0415
     from fireflies_tpu_torch.perf_probe import OPS_PER_PAIR, nvidia_smi  # noqa: PLC0415
+    from fireflies_tpu_torch.render import RenderConfig  # noqa: PLC0415
 
     smi = nvidia_smi()
     dev = torch.device("cuda", 0)
@@ -940,20 +1053,21 @@ def main() -> int:
 
     seeds = list(range(BATCH))
     kres, launches, kernel_path, path_launches = {}, {}, {}, {}
-    # (shape in main_path.SHAPES, kernels of the path, replay only the first
-    # launch of each (kernel, mode), plain versions' variants, kernel_phase
-    # options)
+    # (shape in main_path.SHAPES, kernels of the path, the launches replayed
+    # of each (kernel, mode) (None: every one), plain versions' variants,
+    # kernel_phase options)
     new_route = dict(replay_any=False, time_plain=False)
     paths = [
-        ("main", (B1, B3), False, None, {}),
-        ("reference", (B2, B4), True, 2, {}),
-        ("mid", (B1, B5), True, 2, {}),
-        ("main_unculled", (B6, B3), True, 2, {}),
-        ("reference_unculled", (B7S, B7G), True, 2, {}),
-        ("geometry", (B1, B3), False, 2, new_route),
-        ("reference_geometry", (B2, B4), True, 2, dict(new_route, modes=("closest",))),
+        ("main", (B1, B3), None, None, {}),
+        ("reference", (B2, B4), FIRST, 2, {}),
+        ("mid", (B1, B5), FIRST, 2, {}),
+        ("main_unculled", (B6, B3), FIRST, 2, {}),
+        ("reference_unculled", (B7S, B7G), FIRST, 2, {}),
+        ("geometry", (B1, B3), None, 2, new_route),
+        ("reference_geometry", (B2, B4), FIRST, 2, dict(new_route, modes=("closest",))),
     ]
-    for tag, expected, first_only, plain_nv, options in paths:
+    ref_cfg = RenderConfig(width=128, height=32, spp=1, max_bounces=1, static_geometry=True)
+    for tag, expected, per_mode, plain_nv, options in paths:
         t_path = time.perf_counter()
         bridge, randomize, beams, cfg = main_path.build_shape(tag, dev, SIZE)
         resolution = main_path.SHAPES[tag][0]
@@ -961,19 +1075,21 @@ def main() -> int:
             f"{len(bridge._faces)} faces (vocalfold resolution {resolution}), tile_cull "
             f"{cfg.tile_cull}, static_geometry {cfg.static_geometry}, smooth normals "
             f"{bridge._smooth_mask is not None}"
-            + ("; first launch of each (kernel, mode) only" if first_only else "; every launch")
+            + (f"; launches replayed of each (kernel, mode): {per_mode}" if per_mode
+               else "; every launch")
             + (f", plain versions on the first {plain_nv} variants" if plain_nv else "")
             + (f"; {options}" if options else ""))
         res = kernel_phase(tag, lambda: main_path.render_batch(bridge, randomize, beams, seeds,
-                                                               cfg), first_only, plain_nv,
+                                                               cfg), per_mode, plain_nv,
                            **options)
         kres.update(res)
         if tag == "main":
             log("[main/reference]")
-            reference_phase(bridge, randomize, beams, dev)
+            reference_phase(tag, bridge, randomize, beams, dev, ref_cfg)
         if tag == "geometry":
             log("[geometry/reference]")
-            reference_phase(bridge, randomize, beams, dev, face_table=True)
+            reference_phase(tag, bridge, randomize, beams, dev,
+                            ref_cfg.replace(static_geometry=False), grad=("translation",))
         counts = forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected)
         path_launches[tag] = counts
         for name in expected:
@@ -989,12 +1105,18 @@ def main() -> int:
             t_tex = time.perf_counter()
             log(f"[texture] main shape, {BATCH} variants, projector texture "
                 f"{main_path.BEAM_TEXTURE} rasterized from {beams.shape[0]} beams")
-            reference_phase(bridge, randomize, beams, dev, analytic=False)
+            reference_phase("texture", bridge, randomize, beams, dev, ref_cfg, analytic=False)
             forward_phase("texture", bridge, randomize, beams, seeds, cfg, expected,
                           analytic=False)
             pattern_phase("texture", bridge, randomize, beams, seeds, cfg, dev, analytic=False)
             log(f"[texture] {time.perf_counter() - t_tex:.1f} s")
             c2_phase(bridge, randomize, beams, seeds[:C2_VARIANTS], cfg)
+
+    for tag, phase in (("materials", materials_phase), ("emitters", emitters_phase)):
+        t_path = time.perf_counter()
+        res, path_launches[tag] = phase(dev, seeds)
+        kres.update(res)
+        log(f"[{tag}] {time.perf_counter() - t_path:.1f} s")
 
     t_opt = time.perf_counter()
     path_launches["optimize"] = optimize_phase(dev)
@@ -1043,15 +1165,18 @@ def main() -> int:
         if "lists_ms" in closest:
             entry["tile_lists_ms"] = closest["lists_ms"]
         # The face-table route's launches: B2 and B4 closest-hit without
-        # emitted attributes, B1 and B3 with smooth normals.
-        for path in ("geometry", "reference_geometry"):
+        # emitted attributes, B1 and B3 with smooth normals; the shading
+        # paths' (B4's per-ray-origin any-hit on emitters).
+        for path in ("geometry", "reference_geometry", "materials", "emitters"):
             rows = [r for r in kres.values() if r["kernel"] == name and r["path"] == path]
             if rows:
                 entry[path] = {"cases": len(rows),
                                "max_abs_err": max(r["max_abs_err"] for r in rows),
                                "mismatched": sum(r["mismatched"] for r in rows),
                                "closest_ms": next((r["ms"] for r in rows if not r["any_hit"]),
-                                                  None)}
+                                                  None),
+                               "any_hit_ms": [r["ms"] for r in rows if r["any_hit"]],
+                               "any_hit_bound_ms": [r["bound_ms"] for r in rows if r["any_hit"]]}
         kernels.append(entry)
     kernels += [x1, x2]
     over = [k["name"] for k in kernels if k["bound_ms"] > k["ms"]]

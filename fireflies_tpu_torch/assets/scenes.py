@@ -1,6 +1,8 @@
 """Canonical scene builders (port of fireflies_tpu/assets/scenes.py).
 
   * hello_world — one box, camera, point light
+  * cornell_like — three walls, a floor and a box: multi-mesh,
+                  multi-material global illumination
   * vocalfold   — procedural larynx: vocal folds inside a tube, spot light,
                   laser projector (the main-path workload)
 
@@ -37,6 +39,54 @@ def hello_world(randomize_rotation: bool = True):
     scene.add_light(light)
 
     return scene, {"camera_fov": 45.0, "background": (0.0, 0.0, 0.0)}
+
+
+def cornell_like():
+    """Three walls + floor + box: multi-mesh, multi-material GI test scene."""
+    scene = ff.Scene()
+
+    def add_plane(name, world, color, size=1.0):
+        verts, faces, uvs = procedural.make_plane(size, 1)
+        mesh = ff.Mesh(name, verts, faces, uvs)
+        mesh.set_world(world)
+        scene.add_mesh(mesh, material="mat-" + name)
+        scene.add_material(ff.Material("mat-" + name, base_color=color))
+
+    eye = np.eye(4, dtype=np.float32)
+    floor = eye.copy()
+    floor[:3, :3] = np.array([[1, 0, 0], [0, 0, 1], [0, -1, 0]], np.float32).T  # +Z -> +Y
+    floor[:3, 3] = [0, -1, 0]
+    add_plane("mesh-floor", floor, (0.75, 0.75, 0.75))
+
+    back = eye.copy()
+    back[:3, 3] = [0, 0, -1]
+    add_plane("mesh-back", back, (0.75, 0.75, 0.75))
+
+    left = eye.copy()
+    left[:3, :3] = np.array([[0, 0, -1], [0, 1, 0], [1, 0, 0]], np.float32).T
+    left[:3, 3] = [-1, 0, 0]
+    add_plane("mesh-left", left, (0.8, 0.2, 0.2))
+
+    right = eye.copy()
+    right[:3, :3] = np.array([[0, 0, 1], [0, 1, 0], [-1, 0, 0]], np.float32).T
+    right[:3, 3] = [1, 0, 0]
+    add_plane("mesh-right", right, (0.2, 0.8, 0.2))
+
+    bverts, bfaces = procedural.make_box(0.3)
+    box = ff.Mesh("mesh-box", bverts - bverts.mean(0), bfaces)
+    box.set_centroid(bverts.mean(0) + np.array([0.0, -0.7, 0.0], np.float32))
+    scene.add_mesh(box, material="mat-box")
+    scene.add_material(ff.Material("mat-box", base_color=(0.7, 0.7, 0.9)))
+
+    cam = ff.Transformable("PerspectiveCamera")
+    cam.set_world(ffmath.look_at_np((0.0, 0.0, 2.8), (0.0, 0.0, 0.0)))
+    scene.set_camera(cam)
+
+    light = ff.Light("light-top", kind="point", intensity=(8.0, 8.0, 8.0))
+    light.set_world(ffmath.translation_matrix_np([0.0, 0.85, 0.3]))
+    scene.add_light(light)
+
+    return scene, {"camera_fov": 50.0}
 
 
 def vocalfold(resolution: int = 24, n_anim_frames: int = 8, with_projector: bool = True,

@@ -1,6 +1,6 @@
 """Mesh entity: vertex-level randomization (scale + animation).  Port of
 fireflies_tpu/entity/mesh.py without OBJ loading, procedural animation
-functions, scale intervals and shape models.
+functions and shape models.
 
 Pose composition ``(T + centroid) @ R @ S @ base_world``; vertices are
 animated first, then transformed by the composed world.
@@ -35,6 +35,28 @@ class Mesh(Transformable):
         self._anim_data_train: Optional[np.ndarray] = None
         self._anim_data_eval: Optional[np.ndarray] = None
         self._animation_sampler: Optional[sampling.Sampler] = None
+
+    # -- scale spec ----------------------------------------------------------------
+
+    def set_scale_sampler(self, sampler: sampling.Sampler) -> None:
+        self._randomizable = True
+        self._scale_sampler = sampler
+
+    def scale_x(self, lo: float, hi: float) -> None:
+        self._randomizable = True
+        self._scale_sampler = self._scale_sampler.set_index_interval(0, lo, hi)
+
+    def scale_y(self, lo: float, hi: float) -> None:
+        self._randomizable = True
+        self._scale_sampler = self._scale_sampler.set_index_interval(1, lo, hi)
+
+    def scale_z(self, lo: float, hi: float) -> None:
+        self._randomizable = True
+        self._scale_sampler = self._scale_sampler.set_index_interval(2, lo, hi)
+
+    def scale(self, minimum, maximum) -> None:
+        self._randomizable = True
+        self._scale_sampler = self._scale_sampler.set_sample_interval(minimum, maximum)
 
     # -- animation spec ----------------------------------------------------------
 

@@ -88,12 +88,20 @@ class Transformable:
         self._randomizable = True
         self._float_attributes[key] = sampling.UniformSampler.create(minimum, maximum)
 
+    def add_float_sampler(self, key: str, sampler: sampling.Sampler) -> None:
+        self._randomizable = True
+        self._float_attributes[key] = sampler
+
     def add_vec3_key(self, key: str, minimum, maximum) -> None:
         self._randomizable = True
         self._vec3_attributes[key] = sampling.UniformSampler.create(
             np.asarray(minimum, np.float32).reshape(3),
             np.asarray(maximum, np.float32).reshape(3),
         )
+
+    def add_vec3_sampler(self, key: str, sampler: sampling.Sampler) -> None:
+        self._randomizable = True
+        self._vec3_attributes[key] = sampler
 
     def float_attributes(self) -> dict:
         return self._float_attributes

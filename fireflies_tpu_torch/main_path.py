@@ -36,13 +36,26 @@ variants randomized at that step's index) and the dataset farm
     loss_fn = variant_loss(bridge, randomize, cfg, optim.dot_coverage_objective(1))
     res = optim.optimize_pattern_through_render(loss_fn, beams, seed, steps, batch)
     n = datagen.generate_dataset(datagen_batch(bridge, randomize, beams, cfg), ...)
+
+Two shapes take the rest of the renderer's shading (`BUILDERS`, through
+`build_shape` like SHAPES'): `materials`, the reference's farm scene
+(examples/vocalfold_scene.py's randomization: fold scale and rotation,
+clearcoat, roughness and sheen of the mucosa, a grey spot intensity) with
+material maps, and `emitters`, `cornell_like` with a glass sphere, a thin
+translucent box, anisotropic and flat walls, an area light, a point light
+with an aperture and an envmap.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fireflies_tpu_torch.assets import scenes
+import numpy as np
+
+from fireflies_tpu_torch import sampling
+from fireflies_tpu_torch.assets import procedural, scenes
+from fireflies_tpu_torch.entity import Mesh
+from fireflies_tpu_torch.material import Material
 from fireflies_tpu_torch.optim import hybrid_pose_loss, make_variant_loss
 from fireflies_tpu_torch.postprocessing import gaussian_blur2d
 from fireflies_tpu_torch.projection import laser
@@ -53,6 +66,7 @@ from fireflies_tpu_torch.render import (
     render_segmentation,
 )
 from fireflies_tpu_torch.render.soft import render_soft_silhouette
+from fireflies_tpu_torch.utils import math as ffmath
 
 Tensor = torch.Tensor
 
@@ -103,8 +117,10 @@ def build(device="cuda", resolution: int = SHAPES["main"][0], smooth: bool = Fal
 
 
 def build_shape(name: str, device="cuda", size: int = 512):
-    """(bridge, randomize, beams, cfg) of the shape `name` of SHAPES at a
-    size x size film."""
+    """(bridge, randomize, beams, cfg) of the shape `name` of SHAPES or
+    BUILDERS at a size x size film."""
+    if name in BUILDERS:
+        return BUILDERS[name](device, size)
     resolution, settings = SHAPES[name]
     settings = dict(settings)
     smooth = settings.pop("smooth", False)
@@ -242,3 +258,135 @@ def pose_step(bridge: SceneBridge, randomize, beams: Tensor, delta: Tensor, seed
     loss = hybrid_pose_loss(img, tgt_img, mask, tgt_mask)
     loss.backward()
     return loss.detach(), delta.grad
+
+
+MAP_SIZE = 256  # the material maps' texels a side
+
+
+def material_maps(seed: int) -> dict:
+    """Material maps made with numpy from `seed`, S = MAP_SIZE texels a
+    side: "base" (S, S, 3) a tinted value noise in [0.2, 0.9], "rough"
+    (S, S) in [0.1, 0.9], "normal" (S, S, 3) tangent-space normals tilted
+    up to ~20 degrees, as RGB in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    size = MAP_SIZE
+
+    def noise(cells):
+        coarse = rng.uniform(size=(cells + 1, cells + 1))
+        x = np.linspace(0.0, cells, size)
+        i = np.minimum(x.astype(int), cells - 1)
+        f = x - i
+        rows = coarse[i] * (1 - f)[:, None] + coarse[i + 1] * f[:, None]
+        return rows[:, i] * (1 - f)[None, :] + rows[:, i + 1] * f[None, :]
+
+    tint = rng.uniform(0.5, 1.0, size=3)
+    base = (0.2 + 0.7 * noise(16)[..., None] * tint).astype(np.float32)
+    rough = (0.1 + 0.8 * noise(8)).astype(np.float32)
+    tilt = 0.35 * (np.stack([noise(32), noise(32)], -1) - 0.5)
+    nrm = np.concatenate([tilt, np.ones((size, size, 1))], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    return {"base": base, "rough": rough, "normal": (0.5 * nrm + 0.5).astype(np.float32)}
+
+
+def build_materials(device="cuda", size: int = 512):
+    """(bridge, randomize, beams, cfg) of the `materials` shape: the
+    reference's farm scene, `vocalfold(resolution=24)` (1440 faces) with
+    examples/vocalfold_scene.py's randomization (fold scale x and z in
+    [1, 1.5], rotation y in [-0.2, 0.2]; clearcoat, roughness and sheen of
+    mat-Mucosa each U(0, 1); the spot's intensity one U(5, 25) grey), a
+    base-colour texture on mat-Mucosa (emitted as its ".base_color.data"
+    key) and base-colour, roughness and normal maps on mat-Tissue
+    (`material_maps`, MAP_SIZE^2).  512^2, spp 1, 2 bounces, the analytic
+    projector; the maps take the face-table route."""
+    scene, kw = scenes.vocalfold(resolution=24, n_anim_frames=4)
+    vf = scene.mesh("mesh-Vocalfold")
+    vf.scale_x(1.0, 1.5)
+    vf.scale_z(1.0, 1.5)
+    vf.rotate_y(-0.2, 0.2)
+    mucosa = scene.material("mat-Mucosa")
+    for key in ("clearcoat", "roughness", "sheen"):
+        mucosa.add_float_key(key, 0.0, 1.0)
+    mucosa.set_texture(material_maps(0)["base"])
+    tissue = scene.material("mat-Tissue")
+    maps = material_maps(1)
+    tissue.set_texture(maps["base"])
+    tissue.set_roughness_texture(maps["rough"])
+    tissue.set_normal_texture(maps["normal"])
+    scene.light("emit-Spot").add_vec3_sampler(
+        "intensity.value", sampling.UniformScalarToVec3Sampler.create(5.0, 25.0))
+    bridge = SceneBridge(scene, **kw)
+    beams = laser.generate_uniform_rays(0.0275, 12, 12, device=device)
+    return bridge, scene.compile(device=device), beams, bench_config(size=size)
+
+
+ENVMAP_HW = (128, 256)
+
+
+def _envmap_to_world(yaw: float, tilt: float) -> np.ndarray:
+    """(4, 4) rotation: `tilt` about +X, then `yaw` about +Y."""
+    cy, sy, ct, st = np.cos(yaw), np.sin(yaw), np.cos(tilt), np.sin(tilt)
+    out = np.eye(4, dtype=np.float32)
+    out[:3, :3] = (np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+                   @ np.array([[1, 0, 0], [0, ct, -st], [0, st, ct]]))
+    return out
+
+
+# The emitters shape's envmap orientation: the sun stays high above the
+# camera's view (at most 46 degrees from the zenith).
+ENVMAP_TO_WORLD = _envmap_to_world(0.6, 0.17)
+
+
+def sky_envmap(hw: tuple = ENVMAP_HW) -> np.ndarray:
+    """An (H, W, 3) equirectangular sky: a gradient from a pale horizon to a
+    blue zenith (row 0 is +Y), a dim ground, and one bright sun texel."""
+    h, w = hw
+    theta = np.pi * (np.arange(h) + 0.5) / h
+    up = np.clip(np.cos(theta), 0.0, 1.0)[:, None]
+    sky = (1.0 - up) * np.array([1.0, 0.95, 0.85]) + up * np.array([0.25, 0.45, 0.9])
+    env = np.where((theta < np.pi / 2)[:, None], sky, np.array([0.08, 0.07, 0.06]))
+    env = np.repeat(env[:, None, :], w, axis=1).astype(np.float32)
+    env[h // 5, (3 * w) // 8] = 400.0
+    return env
+
+
+def build_emitters(device="cuda", size: int = 512):
+    """(bridge, randomize, beams, cfg) of the `emitters` shape: `cornell_like`
+    with a glass UV sphere (`make_sphere(0.3, 48, 96)`, 9024 faces;
+    spec_trans 1, thin 0, ior 1.5, roughness 0.1), the box made a thin
+    translucent sheet (spec_trans 0.6, thin 1), anisotropic 0.6 on the back
+    wall, flatness 0.5 on the left, a base-colour texture on the floor
+    (`material_maps`), an emissive ceiling quad (emission 8: the area
+    light), radius 0.05 on the point light (its aperture), and `sky_envmap`
+    under ENVMAP_TO_WORLD with env_nee: 9046 faces, the
+    streamed route.  512^2, spp 4, shared primary, 3 bounces.  The scene
+    has no projector: `beams` only carries the device."""
+    scene, kw = scenes.cornell_like()
+    verts, faces, uvs = procedural.make_sphere(0.3, rings=48, segments=96)
+    sphere = Mesh("mesh-sphere", verts, faces, uvs)
+    sphere.set_world(ffmath.translation_matrix_np([0.55, -0.7, 0.45]))
+    scene.add_mesh(sphere, material="mat-sphere")
+    scene.add_material(Material("mat-sphere", base_color=(0.95, 0.95, 0.95), spec_trans=1.0,
+                                thin=0.0, ior=1.5, roughness=0.1))
+    box = scene.material("mat-box")
+    box.set_param("spec_trans", 0.6)
+    box.set_param("thin", 1.0)
+    scene.material("mat-mesh-back").set_param("anisotropic", 0.6)
+    scene.material("mat-mesh-left").set_param("flatness", 0.5)
+    scene.material("mat-mesh-floor").set_texture(material_maps(0)["base"])
+    verts, faces, uvs = procedural.make_plane(0.3, 1)
+    lamp = Mesh("mesh-lamp", verts, faces, uvs)
+    down = np.eye(4, dtype=np.float32)
+    down[:3, :3] = [[1, 0, 0], [0, 0, -1], [0, 1, 0]]  # +Z -> -Y
+    down[:3, 3] = [0.0, 0.98, -0.45]  # beside the point light, not above it
+    lamp.set_world(down)
+    scene.add_mesh(lamp, material="mat-lamp")
+    scene.add_material(Material("mat-lamp", base_color=(0.8, 0.8, 0.8), emission=(8.0, 8.0, 8.0)))
+    scene.light("light-top").add_float_sampler("radius", sampling.ConstantSampler.of(0.05))
+    bridge = SceneBridge(scene, **kw, background=sky_envmap(), background_to_world=ENVMAP_TO_WORLD)
+    beams = laser.generate_uniform_rays(0.0275, 12, 12, device=device)
+    cfg = RenderConfig(width=size, height=size, spp=4, max_bounces=3, shared_primary=True,
+                       static_geometry=True)
+    return bridge, scene.compile(device=device), beams, cfg
+
+
+BUILDERS = {"materials": build_materials, "emitters": build_emitters}

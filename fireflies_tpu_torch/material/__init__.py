@@ -2,8 +2,11 @@
 
 A Material is a Transformable whose randomization touches only its
 float/vec3 attributes; it records the principled-BSDF default parameters
-the bridge assembles into the material table.  Texture maps are not ported
-yet.
+the bridge assembles into the material table, and optional maps: a
+base-colour texture (H, W, 3), emitted by `Scene.compile()` as
+"<mat>.base_color.data"; a roughness map (H, W) in [0, 1]; a tangent-space
+normal map (H, W, 3), RGB in [0, 1] with n = 2 rgb - 1 (the mesh needs
+uvs).
 """
 
 from __future__ import annotations
@@ -35,9 +38,36 @@ class Material(Transformable):
         self._bsdf = bsdf
         self._params: dict[str, object] = dict(PRINCIPLED_DEFAULTS)
         self._params.update(params)
+        self._texture = None
+        self._roughness_texture = None
+        self._normal_texture = None
+
+    def bsdf(self) -> str:
+        return self._bsdf
 
     def params(self) -> dict:
         return self._params
+
+    def set_param(self, key: str, value) -> None:
+        self._params[key] = value
+
+    def set_texture(self, texture) -> None:
+        self._texture = texture
+
+    def texture(self):
+        return self._texture
+
+    def set_roughness_texture(self, texture) -> None:
+        self._roughness_texture = texture
+
+    def roughness_texture(self):
+        return self._roughness_texture
+
+    def set_normal_texture(self, texture) -> None:
+        self._normal_texture = texture
+
+    def normal_texture(self):
+        return self._normal_texture
 
 
 __all__ = ["Material", "PRINCIPLED_DEFAULTS"]

@@ -8,8 +8,11 @@ all with 2 bounces: `main` (1440 faces, spp 1; B1 and B3, the default),
 `mid` (5288 faces, spp 1; B1 and B5), `reference` (the reference-realistic
 shape: 11538 faces, spp 4, coherent bounce, shared primary; B2 and B4), and
 with tile culling off `main_unculled` (B6 and B3) and `reference_unculled`
-(B7s and B7g), and on the face-table attribute route `geometry` (main with
-smooth normals) and `reference_geometry` (bench.py's static_geom=0 row).
+(B7s and B7g), on the face-table attribute route `geometry` (main with
+smooth normals) and `reference_geometry` (bench.py's static_geom=0 row),
+and the shading shapes of `main_path.BUILDERS`: `materials` (the farm
+scene with material maps; B1 and B3) and `emitters` (9046 faces, spp 4,
+3 bounces, no projector, so no pattern step; B2 and B4).
 `--analytic 0` takes the texture route (the beams rasterized into a
 256x256 projector texture) in place of the analytic beam splat;
 `--static-geometry` overrides the shape's (0: the face-table route).
@@ -126,7 +129,8 @@ def main() -> None:
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--shape", choices=sorted(main_path.SHAPES), default="main")
+    ap.add_argument("--shape", choices=sorted([*main_path.SHAPES, *main_path.BUILDERS]),
+                    default="main")
     ap.add_argument("--analytic", type=int, choices=(0, 1), default=1)
     ap.add_argument("--static-geometry", type=int, choices=(0, 1), default=None)
     args = ap.parse_args()
@@ -152,6 +156,8 @@ def main() -> None:
           f"{'analytic' if analytic else 'texture'} projector, static_geometry "
           f"{cfg.static_geometry}, smooth normals {bridge._smooth_mask is not None}", flush=True)
     report(f"forward, batch {args.batch}", forward, args.top)
+    if bridge._scene.projector() is None:
+        return
     torch.cuda.reset_peak_memory_stats(dev)
     report(f"pattern step, batch {args.batch}", step, args.top)
     print(f"pattern step peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB",

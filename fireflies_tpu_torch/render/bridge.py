@@ -11,14 +11,26 @@ texture: "tex.data" or "<projector>.irradiance.data" of each variant, else
 the constructor's `projector_texture`, else ones((8, 8, 3)); (3, H, W)
 textures are moved to (H, W, 3).  A texture that every variant passes as
 the same tensor stays one (H, W, 3) texture for the batch.
+`projector_aperture` gives it a soft-shadow aperture, a light's "radius"
+(a default or a randomized key) the lights'.
+
+Materials take a base-colour texture from "<mat>.base_color.data" or the
+Mitsuba-nested "<mat>.brdf_0.base_color.data" of each variant (for a
+material with `set_texture` or a sampler on such a key), and roughness and
+normal maps from the Material (`set_roughness_texture`,
+`set_normal_texture`), which "<mat>.roughness.data" / "<mat>.normalmap.data"
+override per variant; each becomes an (M, H, W, C) stack when every
+variant passes each material's map as the same tensor (or none), else a
+(B, M, H, W, C) stack, with a (B, M) `has_*` mask.  The bridge moves its
+own arrays (topology, static maps, envmap, default projector texture) to a
+device once.  Faces of materials with a nonzero default emission are the
+area lights' sample set.  `background` is a (3,) constant or an (H, W, 3)
+envmap, `background_to_world` its rotation.
 
 Mesh uvs are carried (zeros for a mesh without them) when some mesh has
 them.  Meshes flagged smooth get area-weighted vertex normals, computed
 from each variant's vertices on every assemble (differentiable with
 respect to them); flat meshes' rows are zero.
-
-Not ported yet: material textures and area lights; a scene that needs them
-raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -81,9 +93,12 @@ class SceneBridge:
         projector_fov: float = 30.0,
         projector_scale: float = 1.0,
         projector_texture=None,
+        projector_aperture=None,
         background=None,
+        background_to_world=None,
     ):
         self._scene = scene
+        self._on_device: dict = {}  # (name, device) -> the bridge's arrays there
         self._camera_fov = float(camera_fov)
         self._camera_near = float(camera_near)
         self._camera_far = float(camera_far)
@@ -92,11 +107,16 @@ class SceneBridge:
         self._projector_texture = (
             np.asarray(projector_texture, np.float32) if projector_texture is not None else None
         )
+        self._projector_aperture = (
+            float(projector_aperture) if projector_aperture is not None else None
+        )
         self._background = (
             np.asarray(background, np.float32) if background is not None else None
         )
-        if self._background is not None and self._background.ndim != 1:
-            raise NotImplementedError("envmap backgrounds are not ported")
+        self._background_to_world = (
+            np.asarray(background_to_world, np.float32).reshape(4, 4)
+            if background_to_world is not None else None
+        )
 
         # ---- static topology ------------------------------------------------
         self._mesh_names = [m.name() for m in scene.meshes()]
@@ -145,11 +165,24 @@ class SceneBridge:
         self._face_mesh = self._face_mesh[order]
         self._face_mat = self._face_mat[order]
 
-        for m in scene.materials():
-            if np.any(np.asarray(m.params().get("emission", 0.0), np.float32) > 0):
-                raise NotImplementedError("area lights (emissive materials) are not ported")
-            if any(k.endswith(".data") for k in m.vec3_attributes()):
-                raise NotImplementedError("material textures are not ported")
+        # Area lights: the faces of materials whose default emission is
+        # nonzero (static membership; the values may be randomized).
+        emissive = [i for i, m in enumerate(scene.materials())
+                    if np.any(np.asarray(m.params().get("emission", 0.0), np.float32) > 0)]
+        self._emissive_faces = (np.where(np.isin(self._face_mat, emissive))[0]
+                                if emissive else None)
+        self._texture_mats = {
+            i for i, m in enumerate(scene.materials())
+            if m.texture() is not None or any("base_color.data" in k for k in m.vec3_attributes())
+        }
+        self._static_maps = {
+            "roughness.data": {i: np.asarray(m.roughness_texture(), np.float32)
+                               for i, m in enumerate(scene.materials())
+                               if m.roughness_texture() is not None},
+            "normalmap.data": {i: np.asarray(m.normal_texture(), np.float32)
+                               for i, m in enumerate(scene.materials())
+                               if m.normal_texture() is not None},
+        }
 
         # Scene-static lobe flags: a lobe is on iff some material's base value
         # of its field is nonzero or the field is randomized by a sampler.
@@ -185,17 +218,19 @@ class SceneBridge:
         verts = torch.stack([
             torch.cat([p[name + ".vertex_positions"] for name in self._mesh_names])
             for p in variants])
-        faces = torch.as_tensor(self._faces, dtype=torch.long, device=dev)
+        faces = self._on("faces", self._faces, dev, torch.long)
         normals = None
         if self._smooth_mask is not None:
-            normals = compute_vertex_normals(verts, faces) * _f32(self._smooth_mask, dev)[:, None]
+            normals = (compute_vertex_normals(verts, faces)
+                       * self._on("smooth_mask", self._smooth_mask, dev)[:, None])
         geometry = Geometry(
             vertices=verts,
             faces=faces,
-            face_mat=torch.as_tensor(self._face_mat, dtype=torch.long, device=dev),
-            face_mesh=torch.as_tensor(self._face_mesh, dtype=torch.long, device=dev),
-            uvs=_f32(self._uvs, dev) if self._uvs is not None else None,
+            face_mat=self._on("face_mat", self._face_mat, dev, torch.long),
+            face_mesh=self._on("face_mesh", self._face_mesh, dev, torch.long),
+            uvs=self._on("uvs", self._uvs, dev),
             normals=normals,
+            emissive_faces=self._on("emissive_faces", self._emissive_faces, dev, torch.long),
         )
 
         # ---- materials ------------------------------------------------------
@@ -208,14 +243,11 @@ class SceneBridge:
                 v = stack(m.name() + "." + field).reshape(len(variants), -1)
                 rows.append(v[:, :3].expand(-1, 3) if width == 3 else v[:, 0])
             fields[field] = torch.stack(rows, dim=1)
-        materials = Materials(**fields, flags=self._lobe_flags)
+        materials = Materials(**fields, **self._material_maps(variants, dev),
+                              flags=self._lobe_flags)
 
         # ---- lights ---------------------------------------------------------
         light_ents = scene.lights()
-        for li in light_ents:
-            if li.defaults().get("radius") is not None or any(
-                    li.name() + ".radius" in p for p in variants):
-                raise NotImplementedError("soft-shadow light apertures are not ported")
         cutoffs, beams, intensities, worlds = [], [], [], []
         for li in light_ents:
             name = li.name()
@@ -240,6 +272,13 @@ class SceneBridge:
             beam_cos=(torch.stack(beams, 1) if worlds else torch.zeros(b, 0, device=dev)),
             active=torch.ones(b, len(light_ents), dtype=torch.bool, device=dev),
         )
+        # Soft-shadow radii, present when some light has one (a default or
+        # a randomized key); absent, NEE keeps the shared-origin route.
+        if any(li.defaults().get("radius") is not None
+               or any(li.name() + ".radius" in p for p in variants) for li in light_ents):
+            lights = lights.replace(radius=torch.stack(
+                [stack(li.name() + ".radius", li.defaults().get("radius", 0.0), shape=())
+                 for li in light_ents], 1))
 
         # ---- camera ---------------------------------------------------------
         cam_ent = scene.camera()
@@ -264,6 +303,8 @@ class SceneBridge:
                 near=torch.full((b,), self._camera_near, device=dev),
                 far=torch.full((b,), self._camera_far, device=dev),
                 scale=torch.full((b,), self._projector_scale, device=dev),
+                aperture=(torch.full((b,), self._projector_aperture, device=dev)
+                          if self._projector_aperture is not None else None),
             )
             analytic = ["tex.beams" in p for p in variants]
             if any(analytic) and not all(analytic):
@@ -282,9 +323,71 @@ class SceneBridge:
                 projector = Projector(**pose, texture=self._projector_textures(variants, pname,
                                                                                dev))
 
-        background = (_f32(self._background, dev) if self._background is not None else None)
-        return RenderScene(geometry=geometry, materials=materials, lights=lights,
-                           camera=camera, projector=projector, background=background)
+        return RenderScene(
+            geometry=geometry, materials=materials, lights=lights, camera=camera,
+            projector=projector,
+            background=self._on("background", self._background, dev),
+            background_to_world=self._on("background_to_world", self._background_to_world, dev))
+
+    def _on(self, key, array, dev, dtype=torch.float32) -> Tensor | None:
+        """The bridge's own `array` (None stays None) on `dev`, moved there
+        once and kept under `key`."""
+        if array is None:
+            return None
+        if (key, dev) not in self._on_device:
+            self._on_device[key, dev] = torch.as_tensor(array, dtype=dtype, device=dev)
+        return self._on_device[key, dev]
+
+    def _material_maps(self, variants: list[dict], dev) -> dict:
+        """The Materials fields of the maps: `textures` (M, H, W, 3) or
+        (B, M, H, W, 3) from each variant's base-colour key, `roughness_tex`
+        (..., M, H, W, 1) and `normal_tex` (..., M, H, W, 3) from its
+        ".roughness.data" / ".normalmap.data" key or the Material's static
+        map, each with its (B, M) `has_*` mask; zeros where a material has
+        none.  A stack drops the variant axis when every variant passes
+        each material's map as the same tensor (or none)."""
+        mats = self._scene.materials()
+        out = {}
+
+        def table(lookup, chans):
+            # cols[i][b]: material i's map in variant b, or None.
+            cols = [[lookup(p, i, m) for p in variants] for i, m in enumerate(mats)]
+            maps = {id(t): t for col in cols for t in col if t is not None}
+            if not maps:
+                return None
+            for key, t in maps.items():
+                t = _f32(t, dev)
+                maps[key] = t[..., None] if chans == 1 and t.dim() == 2 else _chw_to_hwc(t)
+            zeros = torch.zeros(next(iter(maps.values())).shape, device=dev)
+            has = torch.tensor([[col[b] is not None for col in cols] for b in range(len(variants))],
+                               device=dev)
+
+            def row(b):
+                return torch.stack([zeros if col[b] is None else maps[id(col[b])] for col in cols])
+
+            if all(t is col[0] for col in cols for t in col):
+                return row(0), has
+            return torch.stack([row(b) for b in range(len(variants))]), has
+
+        def base_color(p, i, m):
+            if i not in self._texture_mats:
+                return None
+            prefix = m.name() + "."
+            key = next((k for k in p if k.startswith(prefix) and k.endswith("base_color.data")),
+                       None)
+            return p[key] if key is not None else None
+
+        got = table(base_color, 3)
+        if got is not None:
+            out["textures"], out["has_texture"] = got
+        for attr, field, flag, chans in (("roughness.data", "roughness_tex", "has_roughness_tex", 1),
+                                         ("normalmap.data", "normal_tex", "has_normal_tex", 3)):
+            static = {i: self._on((attr, i), t, dev) for i, t in self._static_maps[attr].items()}
+            got = table(lambda p, i, m, attr=attr, static=static:
+                        p.get(m.name() + "." + attr, static.get(i)), chans)
+            if got is not None:
+                out[field], out[flag] = got
+        return out
 
     def _projector_textures(self, variants: list[dict], pname: str, dev) -> Tensor:
         """The projector texture of each variant: (H, W, 3) when every variant
@@ -293,7 +396,7 @@ class SceneBridge:
         default = (self._projector_texture if self._projector_texture is not None
                    else np.ones((8, 8, 3), np.float32))
         raw = [p.get("tex.data", p.get(pname + ".irradiance.data")) for p in variants]
-        raw = [default if t is None else t for t in raw]
+        raw = [self._on("projector_texture", default, dev) if t is None else t for t in raw]
         if all(t is raw[0] for t in raw):
             return _chw_to_hwc(_f32(raw[0], dev))
         return torch.stack([_chw_to_hwc(_f32(t, dev)) for t in raw])

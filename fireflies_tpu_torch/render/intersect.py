@@ -47,7 +47,7 @@ from fireflies_tpu_torch.render.cuda import (
     intersect_stream,
 )
 from fireflies_tpu_torch.render.types import Geometry, Hit
-from fireflies_tpu_torch.render.vec3 import Vec3, from_array
+from fireflies_tpu_torch.render.vec3 import Vec3, from_array, rsqrt
 from fireflies_tpu_torch.render.vec3 import where as v3_where
 
 Tensor = torch.Tensor
@@ -377,5 +377,5 @@ def _interp_smooth_normal(n0: Vec3, dn1: Vec3, dn2: Vec3, u: Tensor, v: Tensor,
     nsm = n0 + dn1 * u + dn2 * v
     nn2 = nsm.norm2()
     ok = nn2 > 1e-6
-    nsm = nsm * torch.rsqrt(torch.clamp(nn2, min=1e-12))
+    nsm = nsm * rsqrt(torch.clamp(nn2, min=1e-12))
     return v3_where(ok, nsm, geometric)

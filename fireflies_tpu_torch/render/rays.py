@@ -16,8 +16,19 @@ from fireflies_tpu_torch.utils import math as ffmath
 Tensor = torch.Tensor
 
 
+class HostDraws(list):
+    """Generators on the CPU whose draws a render on another device copies
+    there, so that a render on the card takes the draws of the same render
+    on the CPU (the comparison of the two needs this).  A render given a
+    plain list of generators draws on its own device, and a generator on
+    another device is an error."""
+
+
 def uniform(gens, shape, device) -> Tensor:
-    """(B, *shape) U[0, 1) draws, one generator per variant."""
+    """(B, *shape) U[0, 1) draws on `device`, one generator per variant
+    (drawn on the host and copied for `HostDraws`)."""
+    if isinstance(gens, HostDraws):
+        return torch.stack([torch.rand(shape, generator=g) for g in gens]).to(device)
     return torch.stack([torch.rand(shape, generator=g, device=device) for g in gens])
 
 

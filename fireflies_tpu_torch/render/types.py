@@ -4,7 +4,9 @@ Dataclasses of tensors with a leading variant axis B: every per-variant
 field carries it (vertices (B, V, 3), camera to_world (B, 4, 4), material
 rows (B, M), ...), while static topology and tables shared by every variant
 (faces, face_mat, light kinds) do not.  `SceneBridge.assemble` builds these
-from one randomized param dict per variant.
+from one randomized param dict per variant.  Scene-static tables carry no
+variant axis: the envmap background and its orientation, the emissive-face
+set, the lobe flags.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from fireflies_tpu_torch.render.vec3 import rsqrt
 
 Tensor = torch.Tensor
 
@@ -55,7 +59,7 @@ class Projector(_Replace):
     far: Tensor
     texture: Optional[Tensor]  # (H, W, 3) or (B, H, W, 3); None in beam mode
     scale: Tensor  # (B,)
-    aperture: Optional[Tensor] = None  # not ported: must be None
+    aperture: Optional[Tensor] = None  # (B,) soft-shadow aperture radius
     beams_ndc: Optional[Tensor] = None
     beam_sigma: Optional[Tensor] = None
     beam_color: Optional[Tensor] = None
@@ -65,7 +69,11 @@ class Projector(_Replace):
 @dataclasses.dataclass
 class Lights(_Replace):
     """Fixed-slot delta-light table (point / spot).  Spot falloff: full
-    intensity inside `beam_cos`, linear in cosine to `cutoff_cos`."""
+    intensity inside `beam_cos`, linear in cosine to `cutoff_cos`.  With
+    `radius`, NEE visibility is averaged over a disk of that radius in each
+    light's local XY plane (one jittered origin a shadow ray) while the
+    radiance keeps the delta model; radius 0 is hard but takes the
+    per-ray-origin occlusion route."""
 
     kinds: tuple  # (L,) python ints, static
     to_world: Tensor  # (B, L, 4, 4)
@@ -73,7 +81,7 @@ class Lights(_Replace):
     cutoff_cos: Tensor  # (B, L)
     beam_cos: Tensor  # (B, L)
     active: Tensor  # (B, L) bool
-    radius: Optional[Tensor] = None  # soft-shadow apertures: not ported
+    radius: Optional[Tensor] = None  # (B, L) soft-shadow aperture radii
 
     @property
     def count(self) -> int:
@@ -84,7 +92,12 @@ class Lights(_Replace):
 class Materials(_Replace):
     """Principled-BSDF parameter table, one row per material: (B, M) scalars,
     (B, M, 3) colours.  `flags` is the scene-static set of optional lobes any
-    material can activate (None = all)."""
+    material can activate (None = all).  Optional maps, looked up at the
+    hit's uv where the material's `has_*` flag (B, M) is set: `textures`
+    (B, M, Ht, Wt, 3) base colour, `roughness_tex` (B, M, Hr, Wr, 1) in
+    [0, 1] in place of the scalar roughness, `normal_tex` (B, M, Hn, Wn, 3)
+    tangent-space normals as RGB in [0, 1] (n = 2 rgb - 1).  A stack the
+    variants share drops its leading axis: (M, H, W, C)."""
 
     base_color: Tensor
     roughness: Tensor
@@ -101,6 +114,12 @@ class Materials(_Replace):
     ior: Tensor
     thin: Tensor
     emission: Tensor
+    textures: Optional[Tensor] = None
+    has_texture: Optional[Tensor] = None
+    roughness_tex: Optional[Tensor] = None
+    has_roughness_tex: Optional[Tensor] = None
+    normal_tex: Optional[Tensor] = None
+    has_normal_tex: Optional[Tensor] = None
     flags: Optional[frozenset] = None
 
 
@@ -111,14 +130,16 @@ class Geometry(_Replace):
     variant (zeros for meshes without them).  `normals` are smooth-shading
     vertex normals per variant (`compute_vertex_normals`); all-zero rows
     mark flat-shaded vertices, where the hit attributes fall back to the
-    geometric normal."""
+    geometric normal.  `emissive_faces` (E,) are the faces of materials
+    whose default emission is nonzero: the area lights' sample set (static
+    membership; the emission values may be randomized)."""
 
     vertices: Tensor  # (B, V, 3)
     faces: Tensor  # (F, 3) int64
     face_mat: Tensor  # (F,) int64
     face_mesh: Tensor  # (F,) int64
     uvs: Optional[Tensor] = None  # (V, 2)
-    emissive_faces: Optional[Tensor] = None  # area lights: not ported
+    emissive_faces: Optional[Tensor] = None  # (E,) int64
     normals: Optional[Tensor] = None  # (B, V, 3)
 
     def triangle_corners(self):
@@ -141,7 +162,7 @@ def compute_vertex_normals(vertices: Tensor, faces: Tensor) -> Tensor:
     for k in range(3):
         vn = vn.index_add(1, faces[:, k], fn)
     n2 = (vn * vn).sum(dim=-1, keepdim=True)
-    return vn * torch.rsqrt(torch.clamp(n2, min=1e-24)) * (n2 > 1e-24)
+    return vn * rsqrt(torch.clamp(n2, min=1e-24)) * (n2 > 1e-24)
 
 
 @dataclasses.dataclass
@@ -151,8 +172,11 @@ class RenderScene(_Replace):
     lights: Lights
     camera: Camera
     projector: Optional[Projector] = None
-    # (3,) constant escape radiance; envmaps are not ported.
+    # Escape radiance: a (3,) constant or an (H, W, 3) equirectangular
+    # envmap (texture.sample_envmap), shared by every variant; its rotation
+    # `background_to_world` (4, 4) pulls directions into the map's frame.
     background: Optional[Tensor] = None
+    background_to_world: Optional[Tensor] = None
 
     @property
     def batch(self) -> int:
@@ -189,13 +213,15 @@ class RenderConfig(_Replace):
     `coherent_bounce` draws one set of bounce uniforms per 2048-ray tile,
     shared by the tile's rays; `shared_primary` computes the first path
     vertex (primary hit and its NEE) once for all spp samples (see
-    pathtracer._film_render_shared; off under `ray_chunk`).  env_nee only
-    acts on envmap backgrounds, which trace_rays refuses.
+    pathtracer._film_render_shared; off under `ray_chunk`).  `env_nee`
+    importance-samples an (H, W, 3) envmap background as an emitter, with
+    power-heuristic MIS against BSDF-sampled escapes.
     `static_geometry=True` takes positions, normals and material ids from
     the intersection kernels (the vertices get no gradient); the default
     re-derives them differentiably from the face table
     (intersect.hit_attributes_table), as does any scene with smooth
-    normals.  `backend` must be "auto" (else ValueError): the device of the
+    normals, material maps or (on a mesh with uvs) the anisotropic lobe.
+    `backend` must be "auto" (else ValueError): the device of the
     tensors picks the intersection route.  `tile_cull=False` is the port's
     counterpart of the reference's FF_NO_TILE_CULL=1: every ray cast takes
     the kernels without per-tile cluster lists (B6, B3, B7; see

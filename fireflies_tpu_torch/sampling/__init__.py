@@ -1,7 +1,21 @@
-"""Sampling layer (port of fireflies_tpu/sampling: the samplers the ported
-scenes use; the others are not ported yet)."""
+"""Sampling layer (port of fireflies_tpu/sampling: the samplers; the
+Perlin noise texture and the Poisson-disk generators are not ported yet)."""
 
-from fireflies_tpu_torch.sampling.base import Sampler
-from fireflies_tpu_torch.sampling.samplers import AnimationSampler, UniformSampler
+from fireflies_tpu_torch.sampling.base import ConstantSampler, Sampler
+from fireflies_tpu_torch.sampling.samplers import (
+    AnimationSampler,
+    GaussianSampler,
+    UniformIntegerSampler,
+    UniformSampler,
+    UniformScalarToVec3Sampler,
+)
 
-__all__ = ["Sampler", "UniformSampler", "AnimationSampler"]
+__all__ = [
+    "Sampler",
+    "ConstantSampler",
+    "UniformSampler",
+    "GaussianSampler",
+    "UniformIntegerSampler",
+    "UniformScalarToVec3Sampler",
+    "AnimationSampler",
+]

@@ -71,3 +71,31 @@ class Sampler:
         frac = torch.tensor(float(step % n_steps), dtype=torch.float32,
                             device=device) * step_size
         return torch.where(span == 0.0, lo, lo + frac)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstantSampler(Sampler):
+    """Always returns ``min_range`` (non-randomized attributes, and static
+    arrays such as a texture registered under an attribute key)."""
+
+    # The value on each device it was asked for, moved there once: a
+    # texture held as a constant is not copied again on every draw.
+    _on_device: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                         compare=False)
+
+    @classmethod
+    def of(cls, value) -> "ConstantSampler":
+        v = _as_f32(value)
+        return cls(min_range=v, max_range=v)
+
+    def _value(self, device) -> Tensor:
+        device = torch.device(device)
+        if device not in self._on_device:
+            self._on_device[device] = torch.as_tensor(self.min_range, device=device)
+        return self._on_device[device]
+
+    def sample_train(self, gen, device) -> Tensor:
+        return self._value(device)
+
+    def sample_eval(self, step: int, device) -> Tensor:
+        return self._value(device)

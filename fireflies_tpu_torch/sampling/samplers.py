@@ -1,11 +1,12 @@
-"""Concrete samplers used by the ported scenes (port of
-fireflies_tpu/sampling/samplers.py; the Gaussian, integer and
-scalar-to-vec3 samplers are not ported yet)."""
+"""Concrete samplers (port of fireflies_tpu/sampling/samplers.py): uniform,
+Gaussian, uniform integer, one uniform scalar broadcast to a vec3, and the
+animation frame index."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from fireflies_tpu_torch.sampling.base import Sampler, _as_f32
@@ -22,6 +23,54 @@ class UniformSampler(Sampler):
         hi = torch.as_tensor(self.max_range, device=device)
         u = torch.rand(lo.shape, generator=gen, device=device)
         return u * (hi - lo) + lo
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianSampler(Sampler):
+    """N(mean, std) elementwise, unclamped: min_range is the mean, max_range
+    the std, as in the reference.  Eval mode is the base sweep from the mean
+    over [0, std]."""
+
+    def sample_train(self, gen, device) -> Tensor:
+        mean = torch.as_tensor(self.min_range, device=device)
+        std = torch.as_tensor(self.max_range, device=device)
+        return torch.randn(mean.shape, generator=gen, device=device) * std + mean
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformIntegerSampler(Sampler):
+    """Uniform integers in [min, max) in train mode, the sweep
+    min + step % (max - min) in eval mode; int32."""
+
+    def sample_train(self, gen, device) -> Tensor:
+        lo = self.min_range.astype(np.int32)
+        span = torch.as_tensor(np.maximum(self.max_range.astype(np.int32) - lo, 1), device=device)
+        u = torch.rand(lo.shape, generator=gen, device=device, dtype=torch.float64)
+        offset = torch.floor(u * span).to(torch.int32).clamp(max=span - 1)
+        return (torch.as_tensor(lo, device=device) + offset).to(torch.int32)
+
+    def sample_eval(self, step: int, device) -> Tensor:
+        lo = self.min_range.astype(np.int32)
+        n = np.maximum(self.max_range.astype(np.int32) - lo, 1)
+        return torch.as_tensor(lo + step % n, dtype=torch.int32, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformScalarToVec3Sampler(Sampler):
+    """One scalar U(min, max) broadcast to a vec3 (correlated channels, as a
+    grey light intensity)."""
+
+    @classmethod
+    def create(cls, minimum: float, maximum: float,  # type: ignore[override]
+               eval_step_size: float = 0.01, **kw):
+        return cls(min_range=np.full((3,), float(minimum), np.float32),
+                   max_range=np.full((3,), float(maximum), np.float32),
+                   eval_step_size=float(eval_step_size), **kw)
+
+    def sample_train(self, gen, device) -> Tensor:
+        lo = torch.as_tensor(self.min_range, device=device)
+        hi = torch.as_tensor(self.max_range, device=device)
+        return lo + torch.rand((), generator=gen, device=device) * (hi - lo)
 
 
 @dataclasses.dataclass(frozen=True)

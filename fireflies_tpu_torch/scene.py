@@ -8,7 +8,8 @@ Build a scene, attach randomization intervals and samplers, switch
 one variant per call, drawn from the given `torch.Generator` (train mode)
 or the deterministic sweep position `step` (eval mode).  Keys follow the
 reference's Mitsuba-style names ("<mesh>.vertex_positions",
-"<cam>.to_world", "<mat>.roughness", ...).  `Curve`s, `from_params` and the
+"<cam>.to_world", "<mat>.roughness", "<mat>.base_color.data" for a
+material's texture, ...).  `Curve`s, `from_params` and the
 stateful `randomize()` convenience are not ported yet.
 """
 
@@ -135,6 +136,17 @@ class Scene:
         materials = list(self._materials)
         camera = self._camera
         projector = self._projector
+        # Attached base-colour textures, each moved to the device once (again
+        # after a set_texture): every variant of every call passes the same
+        # tensor, which the bridge then keeps as one map for the batch.
+        uploaded: dict[str, tuple] = {}
+
+        def texture_of(mat: Material) -> Tensor:
+            tex = mat.texture()
+            if uploaded.get(mat.name(), (None,))[0] is not tex:
+                uploaded[mat.name()] = (tex, torch.as_tensor(tex, dtype=torch.float32,
+                                                              device=device))
+            return uploaded[mat.name()][1]
 
         def randomize_params(gen: torch.Generator, step: int = 0) -> dict[str, Tensor]:
             worlds: dict[int, Tensor] = {}
@@ -177,6 +189,8 @@ class Scene:
                 for pname, pval in mat.params().items():
                     params[mat.name() + "." + pname] = torch.as_tensor(
                         pval, dtype=torch.float32, device=device)
+                if mat.texture() is not None:
+                    params[mat.name() + ".base_color.data"] = texture_of(mat)
                 emit_attrs(mat)
             return params
 

@@ -1,5 +1,7 @@
 """Port parity: BSDF evaluation, pdf and sampling with injected draws,
-against the JAX functions (the lights are in tests/test_torch_lights.py).
+against the JAX functions, for the diffuse and GGX lobes (the optional
+lobes are in tests/test_torch_bsdf_lobes.py, the lights in
+tests/test_torch_lights.py).
 
 Inputs are random frames made with numpy and fed to both packages; both
 vocalfold materials (and a metallic variant) are covered.  Tolerance:
@@ -90,11 +92,3 @@ def test_bsdf_matches(name):
     wi_tj = _v(wi_t.to_array().numpy(), "jax")
     _close(pdf_t, jx_bsdf.pdf_v(pj, nj, woj, wi_tj), ill_conditioned=True)
     _close(f_t, jx_bsdf.evaluate_v(pj, nj, woj, wi_tj), ill_conditioned=True)
-
-
-def test_bsdf_refuses_unported_lobes():
-    n, wo, wi, _ = _frames(5)
-    pt = _params(MATERIALS["tissue"], "torch")
-    pt["_flags"] = frozenset({"clearcoat"})
-    with pytest.raises(NotImplementedError):
-        tc_bsdf.evaluate_v(pt, _v(n, "torch"), _v(wo, "torch"), _v(wi, "torch"))
