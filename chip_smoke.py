@@ -94,6 +94,18 @@ Phases (each raises on failure, so any failure exits non-zero):
      CUDA against the CPU plain path at 128x32, 2 variants, 2 bounces, as
      on materials, with the gradient of the mean image to the floor's
      texture and the sphere's roughness; phase 5 (B2 and B4, no other);
+  reparam (bench's 256^2 pose_reparam row: 2 variants, chunk 1024,
+     `RenderConfig(reparam=True)`, render/reparam.py): one warp
+     evaluation's B1 launches (the camera's aux rays, each emitter's
+     shadow-feature rays: closest hit from the light, t_max 1 - 1e-3) and
+     the warped pass's camera B1 and first B3 launches replayed, 0 rays
+     off; the pose_reparam
+     loss and translation gradient at 128x32, CUDA against the CPU plain
+     path with the same generators (1e-5 relative, 1e-3 relative L2);
+     `render_depth_reparam` on a translating quad within 15% of the
+     analytic boundary flux, on the card alone; one counted pose step (B1
+     and B3 only, at the counts `reparam_expected` derives from the code),
+     then s/step and peak memory;
   then the two loops, each with every counter set to 0 just before it and
   read just after (B1 and B3 launched, no other kernel):
   optimize: `optim.optimize_pattern_through_render` over
@@ -134,7 +146,7 @@ Then one JSON line with the kernels (each with its fused operations per
 tested pair, `ops_per_pair`, its counted launches on every path that runs
 it, `launches_by_path`, and for the nine intersection kernels
 `least_pairs` and `least_bound_ms`, and for each path beyond its own that
-replays it (geometry, reference_geometry, materials, emitters) its cases,
+replays it (geometry, reference_geometry, materials, emitters, reparam) its cases,
 mismatches and times (B4's any-hit times on emitters); for X1 beside them its tensor-core
 multiply-adds and reciprocals per pair and the bounds with d' on the FP32
 pipe; for X2 its
@@ -645,6 +657,235 @@ def emitters_phase(dev, seeds) -> tuple[dict, dict]:
     return res, counts
 
 
+REPARAM_SIZE, REPARAM_BATCH, REPARAM_CHUNK = 256, 2, 1024  # bench's 256^2 pose_reparam row
+
+
+def _reparam_cfg(size: int):
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    return main_path.bench_config(size=size, static_geometry=False).replace(
+        reparam=True, reparam_chunk=REPARAM_CHUNK)
+
+
+def reparam_expected(cfg, n_pixels: int, n_lights: int) -> dict:
+    """The launches of one `pose_reparam` step, from the code: each of its
+    two passes (the value's, without autograd, and the warped one) casts a
+    B1 camera launch, a B1 any-hit launch for every delta emitter at every
+    vertex and a B3 launch for every bounce; the warp runs only in the
+    backward, once per chunk of REPARAM_CHUNK rays: a B1 closest-hit launch
+    for the camera's aux rays and one for every emitter's shadow-feature
+    rays."""
+    chunks = -(-n_pixels // cfg.reparam_chunk)
+    per_pass = {B1: 1 + n_lights * cfg.max_bounces, B3: cfg.max_bounces - 1}
+    return {B1: 2 * per_pass[B1] + chunks * (1 + n_lights), B3: 2 * per_pass[B3]}
+
+
+def _quad_scene(dx, dev):
+    """tests/test_reparam.py's quad at z = -2 translated by dx along x,
+    seen by a 60-degree camera at the origin; no lights."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch.render import types as tc  # noqa: PLC0415
+
+    half, z = 0.5, -2.0
+    verts = torch.tensor([[-half, -half, z], [half, -half, z], [half, half, z], [-half, half, z]],
+                         device=dev) + torch.stack([dx, 0 * dx, 0 * dx])
+    one = torch.ones(1, 1, device=dev)
+    mats = tc.Materials(**{f: one for f in (
+        "roughness metallic specular spec_tint clearcoat clearcoat_gloss sheen sheen_tint "
+        "anisotropic spec_trans flatness ior thin").split()}, base_color=torch.ones(1, 1, 3,
+                                                                                    device=dev),
+        emission=torch.zeros(1, 1, 3, device=dev))
+    zero = torch.zeros(1, 0, device=dev)
+    return tc.RenderScene(
+        geometry=tc.Geometry(vertices=verts[None],
+                             faces=torch.tensor([[0, 1, 2], [0, 2, 3]], device=dev),
+                             face_mat=torch.zeros(2, dtype=torch.long, device=dev),
+                             face_mesh=torch.zeros(2, dtype=torch.long, device=dev)),
+        materials=mats,
+        lights=tc.Lights(kinds=(), to_world=torch.zeros(1, 0, 4, 4, device=dev),
+                         intensity=torch.zeros(1, 0, 3, device=dev), cutoff_cos=zero,
+                         beam_cos=zero, active=zero.bool()),
+        camera=tc.Camera(to_world=torch.eye(4, device=dev)[None],
+                         fov=torch.tensor([60.0], device=dev), near=torch.tensor([0.01], device=dev),
+                         far=torch.tensor([1000.0], device=dev)))
+
+
+def _analytic_quad_flux(dx: float) -> float:
+    """tests/test_reparam.py's quadrature of d(mean depth)/d(dx): the depth
+    flux through the quad's two moving vertical edges."""
+    import numpy as np  # noqa: PLC0415
+
+    tanf = math.tan(math.radians(30.0))
+    c = 2.0 * tanf
+    ys = np.linspace(-0.5 / c, 0.5 / c, 4001)
+
+    def g(x):
+        return float(np.trapezoid(2.0 * np.sqrt(1.0 + (x * tanf) ** 2 + (ys * tanf) ** 2), ys))
+
+    return (g((dx + 0.5) / c) - g((dx - 0.5) / c)) / (4.0 * c)
+
+
+def reparam_phase(dev, seeds) -> tuple[dict, dict]:
+    """The warped-area route (`RenderConfig(reparam=True)`, render/reparam.py)
+    on the main scene at bench's 256^2 `pose_reparam` row (vocalfold 1440
+    faces, batch 2, chunk 1024):
+      (a) one warp evaluation's B1 launches recorded and replayed against
+          the plain version: the camera's aux rays (closest hit, shared
+          origin) and each delta emitter's shadow-feature rays (closest
+          hit from the light, t_max 1 - 1e-3 over unnormalized segments),
+          0 rays off; and the warped pass's own launches
+          (`pathtracer._film_render_reparam`, which runs no value pass):
+          its camera B1 launch on the warped samples in tile order and its
+          first B3 launch (the bounce), 0 rays off;
+      (b) the pose_reparam loss (`optim.image_l2` of the warped render
+          against a detached one) and its (3,) translation gradient at
+          128x32 on 2 variants, CUDA against the CPU plain path with the
+          same `rays.HostDraws` generators: the loss within 1e-5 relative,
+          the gradient within 1e-3 relative L2;
+      (c) a witness that needs no CPU: `render_depth_reparam` on the
+          translating quad (96^2, k_aux 12, radius 0.06), the mean of 3
+          seeds' d(mean depth)/d(dx) within 15% of the analytic flux, and
+          the detached depth's gradient below 1e-6;
+      (d) one counted `main_path.pose_step` (every counter set to 0 just
+          before, read just after): B1 and B3 only, at the counts
+          `reparam_expected` derives; then a timed step, s/step and peak
+          memory.
+    The variants: the first REPARAM_BATCH of `seeds`.  Returns (the
+    replays, the counted step's launches)."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.optim import image_l2  # noqa: PLC0415
+    from fireflies_tpu_torch.render import (  # noqa: PLC0415
+        RenderConfig,
+        integrators,
+        lights,
+        render_rgb,
+    )
+    from fireflies_tpu_torch.render import pathtracer  # noqa: PLC0415
+    from fireflies_tpu_torch.render import reparam as rp  # noqa: PLC0415
+    from fireflies_tpu_torch.render.rays import HostDraws, pixel_to_ndc  # noqa: PLC0415
+
+    bridge, randomize, beams = main_path.build(dev)
+    cfg = _reparam_cfg(REPARAM_SIZE)
+    seeds = seeds[:REPARAM_BATCH]
+    render_seeds = [s + 100 for s in seeds]
+    log(f"[reparam] {REPARAM_BATCH} variants x {REPARAM_SIZE}x{REPARAM_SIZE}, "
+        f"{len(bridge._faces)} faces, {cfg.max_bounces} bounces, k_aux {cfg.reparam_k_aux}, "
+        f"radius {cfg.reparam_radius}, chunk {cfg.reparam_chunk}")
+
+    # (a) the first chunk's warp: aux rays, then one shadow set per emitter.
+    scene, gens = main_path.pose_scene(bridge, randomize, beams, torch.zeros(3, device=dev),
+                                       seeds, render_seeds)
+    light_pos = torch.stack(lights.emitter_positions(scene.lights, scene.projector), dim=1)
+    n_lights = light_pos.shape[1]
+    warp = rp.make_warp_field(scene.camera, scene.geometry, gens, k_aux=cfg.reparam_k_aux,
+                              radius=cfg.reparam_radius, light_positions=light_pos)
+    pix = torch.arange(REPARAM_CHUNK, device=dev)
+    u = pixel_to_ndc((pix % REPARAM_SIZE + 0.5).float(), (pix // REPARAM_SIZE + 0.5).float(),
+                     REPARAM_SIZE, REPARAM_SIZE).expand(REPARAM_BATCH, -1, -1)
+    res = kernel_phase("reparam", lambda: warp(u), {"closest": 1 + n_lights}, None,
+                       modes=("closest",), replay_any=False)
+    if len(res) != 1 + n_lights or any(r["kernel"] != B1 or r["mismatched"] for r in res.values()):
+        raise AssertionError(f"reparam: the aux and shadow-feature replays: {list(res)}")
+    # The warped pass alone (pathtracer._film_render_reparam; render_rgb
+    # would run the value pass first): its camera launch (B1 on the
+    # warped NDC samples in tile order) and its first bounce launch (B3).
+    warped = kernel_phase("reparam_warped", lambda: pathtracer._film_render_reparam(
+        scene, gens, cfg), {"closest": 1}, None, modes=("closest",), replay_any=False)
+    if (sorted(r["kernel"] for r in warped.values()) != sorted([B1, B3])
+            or any(r["mismatched"] for r in warped.values())):
+        raise AssertionError(f"reparam: the warped pass's replays: {list(warped)}")
+    res.update({case: dict(r, path="reparam") for case, r in warped.items()})
+
+    # (b) CUDA against the CPU plain path.
+    base = [randomize(torch.Generator(device=dev).manual_seed(s), 0) for s in (7, 8)]
+    small = cfg.replace(width=128, height=32)
+
+    def run(device):
+        params = [{k: v.to(device) for k, v in p.items()} for p in base]
+        delta = torch.zeros(3, device=device, requires_grad=True)
+        for p in params:
+            p.update({k: v + delta for k, v in p.items() if k.endswith(".vertex_positions")})
+            p.update(main_path.projector_params(beams.to(device)))
+        scene_d = bridge.assemble(params)
+        with torch.no_grad():
+            target = render_rgb(scene_d, HostDraws(torch.Generator().manual_seed(200 + s)
+                                                   for s in (7, 8)), small.replace(reparam=False))
+        img = render_rgb(scene_d, HostDraws(torch.Generator().manual_seed(100 + s)
+                                            for s in (7, 8)), small)
+        loss = image_l2(img, target)
+        loss.backward()
+        return loss.item(), delta.grad.cpu()
+
+    t0 = time.perf_counter()
+    (loss_k, g_k), (loss_p, g_p) = run(dev), run(torch.device("cpu"))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    g_rel = float((g_k - g_p).norm() / g_p.norm())
+    log(f"[reparam/reference] pose_reparam loss at 128x32, 2 variants: {loss_k:.8g} against the "
+        f"CPU's {loss_p:.8g} ({loss_rel:.3g} relative); translation gradient {g_k.tolist()} "
+        f"against {g_p.tolist()} ({g_rel:.3g} relative L2); {time.perf_counter() - t0:.1f} s")
+    if not (math.isfinite(loss_k) and loss_rel <= 1e-5 and torch.isfinite(g_k).all()
+            and g_p.abs().max() > 0 and g_rel <= 1e-3):
+        raise AssertionError("reparam: the CUDA path disagrees with the CPU plain path")
+
+    # (c) the analytic witness on the card alone.
+    ref = _analytic_quad_flux(0.3)
+    grads = []
+    for seed in range(3):
+        dx = torch.tensor(0.3, device=dev, requires_grad=True)
+        depth = rp.render_depth_reparam(_quad_scene(dx, dev), RenderConfig(width=96, height=96),
+                                        [torch.Generator(device=dev).manual_seed(seed)],
+                                        k_aux=12, radius=0.06)
+        grads.append(float(torch.autograd.grad(depth.mean(), dx)[0]))
+    dx = torch.tensor(0.3, device=dev, requires_grad=True)
+    plain = integrators.render_depth_differentiable(_quad_scene(dx, dev),
+                                                   RenderConfig(width=128, height=16))
+    g_plain = float(torch.autograd.grad(plain.mean(), dx)[0])
+    witness = sum(grads) / len(grads)
+    log(f"[reparam/witness] d(mean depth)/d(dx) of the translating quad at 96^2: {witness:.6g} "
+        f"(seeds {grads}) against the analytic {ref:.6g} ({witness / ref - 1:+.4f}); detached "
+        f"{g_plain:.3g}")
+    if abs(witness / ref - 1) > 0.15 or abs(g_plain) >= 1e-6:
+        raise AssertionError("reparam: the warped depth gradient misses the analytic flux")
+
+    # (d) the counted pose_reparam step, then a timed one.
+    targets = main_path.pose_targets(bridge, randomize, beams, seeds, cfg,
+                                     render_seeds=[s + 50 for s in seeds])
+    delta = torch.zeros(3, device=dev)
+    out = {}
+
+    def step():
+        out["loss"], out["grad"] = main_path.pose_step(bridge, randomize, beams, delta, seeds,
+                                                       targets, cfg, render_seeds=render_seeds)
+
+    t0 = time.perf_counter()
+    counts = count_launches(step)
+    first_s = time.perf_counter() - t0
+    expected = reparam_expected(cfg, REPARAM_SIZE * REPARAM_SIZE, n_lights)
+    log(f"[reparam/pose_step] launches {counts}; derived B1 {expected[B1]}, B3 {expected[B3]}; "
+        f"first step {first_s:.3f} s")
+    check_launches("reparam", counts, (B1, B3))
+    if counts[B1] != expected[B1] or counts[B3] != expected[B3]:
+        raise AssertionError(f"reparam: launches {counts} differ from the derived {expected}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    loss, grad = out["loss"], out["grad"]
+    log(f"[reparam/pose_step] loss {loss.item():.6g} grad {grad.tolist()} {step_s:.4f} s/step "
+        f"({REPARAM_BATCH / step_s:.4f} renders/s), peak {peak:.3f} GiB")
+    if (tuple(grad.shape) != (3,) or not torch.isfinite(grad).all() or grad.abs().max() == 0
+            or not torch.isfinite(loss)):
+        raise AssertionError("reparam: the translation gradient is not a finite nonzero (3,)")
+    return res, counts
+
+
+
 def bench_phase() -> list[dict]:
     """`bench.measure` for the headline row, the texture row, the reference
     shape, and the face-table route's rows (the reference shape unshared
@@ -1112,7 +1353,8 @@ def main() -> int:
             log(f"[texture] {time.perf_counter() - t_tex:.1f} s")
             c2_phase(bridge, randomize, beams, seeds[:C2_VARIANTS], cfg)
 
-    for tag, phase in (("materials", materials_phase), ("emitters", emitters_phase)):
+    for tag, phase in (("materials", materials_phase), ("emitters", emitters_phase),
+                       ("reparam", reparam_phase)):
         t_path = time.perf_counter()
         res, path_launches[tag] = phase(dev, seeds)
         kres.update(res)
@@ -1167,7 +1409,7 @@ def main() -> int:
         # The face-table route's launches: B2 and B4 closest-hit without
         # emitted attributes, B1 and B3 with smooth normals; the shading
         # paths' (B4's per-ray-origin any-hit on emitters).
-        for path in ("geometry", "reference_geometry", "materials", "emitters"):
+        for path in ("geometry", "reference_geometry", "materials", "emitters", "reparam"):
             rows = [r for r in kres.values() if r["kernel"] == name and r["path"] == path]
             if rows:
                 entry[path] = {"cases": len(rows),

@@ -24,7 +24,13 @@ attribute route (the latter with interpolated vertex normals).
 step is `main_path.pose_step`, the gradient with respect to a (3,) mesh
 translation of the path-traced L2 plus a 256x256 soft-silhouette L2
 against targets rendered once, untimed, over a fixed batch of variants;
-windows chain delta = delta + 1e-20 * grad.
+windows chain delta = delta + 1e-20 * grad.  `grad_mode="pose_reparam"`
+is the same step with `RenderConfig(reparam=True)`: the path-traced L2
+alone, its silhouette and shadow-edge gradients from the warped-area pass
+(render/reparam.py), whose warp the backward recomputes `reparam_chunk`
+rays at a time; the reference's host-split pipeline for its 512^2 row
+(`reparam_split_value_and_grad`) is not ported, so that row runs as one
+chunked step.
 
 `measure_datagen` (`--datagen`, VARIANTS' `datagen=1` row) is the
 counterpart of `bench.py::measure_datagen`: the dataset farm's accepted
@@ -37,8 +43,7 @@ count and one sha256 over the frames' own).
 
 The measurement runs on the card unless the caller passes device="cpu"
 (`--device cpu`), which the tests do at a tiny size; the result names its
-device.  Rows of VARIANTS that the port cannot run yet print a line naming
-the refusal.
+device.
 """
 
 from __future__ import annotations
@@ -95,16 +100,19 @@ def measure(size: int = 512, spp: int = 1, bounces: int = 2, repeats: int = 20,
             resolution: int = 24, batch: int = 16, trials: int = 3, analytic: int = 1,
             coherent: int = 0, shared: int = 0, tile_cull: int = 1, static_geom: int = 1,
             smooth: int = 0, ray_chunk: int = 0, grad_mode: str = "beams",
-            soft_size: int = main_path.SOFT_SIZE, device="cuda") -> dict:
+            soft_size: int = main_path.SOFT_SIZE, reparam_chunk: int = 2048,
+            device="cuda") -> dict:
     """One throughput measurement of the pattern-optimization step
-    (`grad_mode="beams"`) or of the pose step (`"pose_soft"`: the gradient
-    with respect to a mesh translation of the path-traced L2 plus a
-    soft_size x soft_size soft-silhouette L2, on the face-table route, with
-    the analytic projector); the result line as a dict (metric, value,
-    unit, detail)."""
-    if grad_mode not in ("beams", "pose_soft"):
-        raise NotImplementedError(f"grad_mode={grad_mode!r} is not ported")
-    pose = grad_mode == "pose_soft"
+    (`grad_mode="beams"`) or of the pose step (the gradient with respect to
+    a mesh translation, on the face-table route, with the analytic
+    projector: `"pose_soft"`, the path-traced L2 plus a soft_size x
+    soft_size soft-silhouette L2; `"pose_reparam"`, the path-traced L2 with
+    warped-area gradients, the warp recomputed `reparam_chunk` rays at a
+    time); the result line as a dict (metric, value, unit, detail)."""
+    if grad_mode not in ("beams", "pose_soft", "pose_reparam"):
+        raise ValueError(f"grad_mode={grad_mode!r}: beams, pose_soft or pose_reparam")
+    pose = grad_mode != "beams"
+    reparam = grad_mode == "pose_reparam"
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -115,6 +123,8 @@ def measure(size: int = 512, spp: int = 1, bounces: int = 2, repeats: int = 20,
                                  tile_cull=bool(tile_cull),
                                  static_geometry=bool(static_geom) and not pose)
     cfg = cfg.replace(ray_chunk=ray_chunk)
+    if reparam:
+        cfg = cfg.replace(reparam=True, reparam_chunk=reparam_chunk)
     n_faces = len(bridge._faces)
     analytic = analytic or pose
     losses = []
@@ -167,7 +177,10 @@ def measure(size: int = 512, spp: int = 1, bounces: int = 2, repeats: int = 20,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
         "card": nvidia_smi() if on_card else None,
     }
-    if pose:
+    if reparam:
+        detail.update(reparam_chunk=reparam_chunk, reparam_k_aux=cfg.reparam_k_aux,
+                      loss=float(losses[-1]))
+    elif pose:
         detail.update(soft_size=soft_size, loss=float(losses[-1]))
     return {
         "metric": (
@@ -179,7 +192,8 @@ def measure(size: int = 512, spp: int = 1, bounces: int = 2, repeats: int = 20,
             + (", shared-primary" if cfg.shared_primary and spp > 1 and not ray_chunk else "")
             + (f", ray-chunk {ray_chunk}" if ray_chunk else "")
             + ("" if cfg.tile_cull else ", no-tile-cull")
-            + (f", pose-grad soft mask{soft_size}" if pose else "")
+            + (f", pose-grad soft mask{soft_size}" if pose and not reparam else "")
+            + (f", pose-grad reparam chunk{reparam_chunk}" if reparam else "")
             + (", analytic-projector" if analytic else "") + ")"
         ),
         "value": round(repeats * batch / dt, 3),
@@ -252,8 +266,7 @@ def measure_datagen(size: int = 512, spp: int = 4, resolution: int = 24, batch: 
 
 
 # bench.py's VARIANTS (bench.py:637-692), in its keys, which are measure's
-# arguments but for the refused ones below; `datagen=1` is measure_datagen
-# at its defaults.
+# arguments; `datagen=1` is measure_datagen at its defaults.
 VARIANTS = [
     dict(),
     dict(analytic=0),
@@ -280,35 +293,23 @@ VARIANTS = [
 ]
 
 
-def refusal(row: dict) -> str | None:
-    """Why the port cannot run a VARIANTS row yet, or None."""
-    if row.get("grad_mode", "beams") not in ("beams", "pose_soft"):
-        return (f"grad_mode={row['grad_mode']} (warped-area reparameterization, "
-                "RenderConfig.reparam) is not ported")
-    return None
-
-
 def run_variants(device="cuda") -> int:
-    """One JSON line for each row of VARIANTS: its measurement, its refusal,
-    or, for a row whose step does not fit in device memory, the error.
-    Returns the number of rows that ran out of memory."""
+    """One JSON line for each row of VARIANTS: its measurement or, for a
+    row whose step does not fit in device memory, the error.  Returns the
+    number of rows that ran out of memory."""
     failed = 0
     for index, row in enumerate(VARIANTS):
-        why = refusal(row)
         line = {"variant": index, "row": row}
-        if why is not None:
-            line["refused"] = why
-        else:
-            try:
-                if row.get("datagen", 0):
-                    line.update(measure_datagen(device=device))
-                else:
-                    line.update(measure(**row, device=device))
-            except torch.cuda.OutOfMemoryError as exc:
-                failed += 1
-                line["error"] = f"out of device memory: {str(exc).splitlines()[0]}"
-            if torch.device(device).type == "cuda":
-                torch.cuda.empty_cache()
+        try:
+            if row.get("datagen", 0):
+                line.update(measure_datagen(device=device))
+            else:
+                line.update(measure(**row, device=device))
+        except torch.cuda.OutOfMemoryError as exc:
+            failed += 1
+            line["error"] = f"out of device memory: {str(exc).splitlines()[0]}"
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
         print(json.dumps(line), flush=True)
     return failed
 

@@ -28,6 +28,11 @@ targets rendered once):
     targets = pose_targets(bridge, randomize, beams, seeds, cfg)
     loss, grad = pose_step(bridge, randomize, beams, delta, seeds, targets, cfg)
 
+With `RenderConfig(reparam=True)` the same two calls are `bench.py`'s
+`pose_reparam` row: the path-traced L2 alone (`optim.image_l2`), its
+silhouette and shadow-edge gradients from the warped-area pass
+(render/reparam.py), no soft silhouette.
+
 Around the render run the two loops users run: the pattern optimizer
 (`variant_loss` for `optim.optimize_pattern_through_render`, each step's
 variants randomized at that step's index) and the dataset farm
@@ -56,7 +61,7 @@ from fireflies_tpu_torch import sampling
 from fireflies_tpu_torch.assets import procedural, scenes
 from fireflies_tpu_torch.entity import Mesh
 from fireflies_tpu_torch.material import Material
-from fireflies_tpu_torch.optim import hybrid_pose_loss, make_variant_loss
+from fireflies_tpu_torch.optim import hybrid_pose_loss, image_l2, make_variant_loss
 from fireflies_tpu_torch.postprocessing import gaussian_blur2d
 from fireflies_tpu_torch.projection import laser
 from fireflies_tpu_torch.render import (
@@ -226,36 +231,43 @@ def pose_scene(bridge: SceneBridge, randomize, beams: Tensor, delta: Tensor, see
 
 
 def pose_targets(bridge: SceneBridge, randomize, beams: Tensor, seeds, cfg: RenderConfig,
-                 render_seeds=None, soft_size: int = SOFT_SIZE) -> tuple[Tensor, Tensor]:
+                 render_seeds=None, soft_size: int = SOFT_SIZE) -> tuple[Tensor, Tensor | None]:
     """The detached targets of the pose objective at delta = 0: each seed's
-    image (B, H, W, 3), its draws as `pose_scene` makes them, and its soft
-    silhouette (B, soft_size, soft_size)."""
+    image (B, H, W, 3), its draws as `pose_scene` makes them, rendered
+    without `reparam`, and its soft silhouette (B, soft_size, soft_size),
+    None under `cfg.reparam` (whose objective has none)."""
     with torch.no_grad():
         zero = torch.zeros(3, device=beams.device)
         scene, gens = pose_scene(bridge, randomize, beams, zero, seeds, render_seeds)
-        img = render_rgb(scene, gens, cfg)
-        mask = render_soft_silhouette(scene, cfg.replace(width=soft_size, height=soft_size))
+        img = render_rgb(scene, gens, cfg.replace(reparam=False))
+        mask = None if cfg.reparam else render_soft_silhouette(
+            scene, cfg.replace(width=soft_size, height=soft_size))
     return img, mask
 
 
 def pose_step(bridge: SceneBridge, randomize, beams: Tensor, delta: Tensor, seeds, targets,
               cfg: RenderConfig, soft_size: int = SOFT_SIZE,
               render_seeds=None) -> tuple[Tensor, Tensor]:
-    """The pose objective (`optim.hybrid_pose_loss`: the path-traced image's
-    L2 against the targets' plus the soft silhouette's, each a mean over
-    the batch) and its gradient with respect to the (3,) translation
-    `delta`, in one batched render, one soft silhouette and one backward,
-    as the loss of the reference's `bench.py::_measure_pose`.  Variants and
-    draws as `pose_scene` makes them.  `cfg.static_geometry` must be False,
-    or the vertices get no gradient."""
+    """The pose objective and its gradient with respect to the (3,)
+    translation `delta`, in one batched render and one backward, as the
+    loss of the reference's `bench.py::_measure_pose`: `optim.hybrid_pose_loss`
+    (the path-traced image's L2 against the targets' plus the soft
+    silhouette's, each a mean over the batch, with one soft silhouette),
+    or under `cfg.reparam` `optim.image_l2` alone (the `pose_reparam`
+    row: the render's warped-area pass carries the boundary gradients).
+    Variants and draws as `pose_scene` makes them.  `cfg.static_geometry`
+    must be False, or the vertices get no gradient."""
     if cfg.static_geometry:
         raise ValueError("pose_step needs RenderConfig(static_geometry=False)")
     delta = delta.detach().requires_grad_(True)
     tgt_img, tgt_mask = targets
     scene, gens = pose_scene(bridge, randomize, beams, delta, seeds, render_seeds)
     img = render_rgb(scene, gens, cfg)
-    mask = render_soft_silhouette(scene, cfg.replace(width=soft_size, height=soft_size))
-    loss = hybrid_pose_loss(img, tgt_img, mask, tgt_mask)
+    if cfg.reparam:
+        loss = image_l2(img, tgt_img)
+    else:
+        mask = render_soft_silhouette(scene, cfg.replace(width=soft_size, height=soft_size))
+        loss = hybrid_pose_loss(img, tgt_img, mask, tgt_mask)
     loss.backward()
     return loss.detach(), delta.grad
 

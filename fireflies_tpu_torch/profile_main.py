@@ -1,7 +1,7 @@
 """Where a render path's device time goes, from torch.profiler's device events.
 
     python -m fireflies_tpu_torch.profile_main [--shape main] [--size 512] [--batch 16]
-        [--analytic 1] [--static-geometry 0|1]
+        [--analytic 1] [--static-geometry 0|1] [--pose-reparam CHUNK]
 
 `--shape` picks one of the shapes chip_smoke.py drives (`main_path.SHAPES`),
 all with 2 bounces: `main` (1440 faces, spp 1; B1 and B3, the default),
@@ -18,7 +18,10 @@ scene with material maps; B1 and B3) and `emitters` (9046 faces, spp 4,
 `--static-geometry` overrides the shape's (0: the face-table route).
 Profiles one forward batch (`render_batch` under no_grad) and one pattern
 step over the same batch (one batched render, one backward), each after a
-warm-up, and prints for each:
+warm-up; with `--pose-reparam CHUNK` the step is bench's `pose_reparam`
+step instead (`main_path.pose_step` under `RenderConfig(reparam=True,
+reparam_chunk=CHUNK)`, the face-table route, against targets rendered
+once) and the forward is its two passes.  Prints for each:
 
 - wall: host time of the run, with and without the profiler attached
   (median of 3 unprofiled runs);
@@ -133,6 +136,8 @@ def main() -> None:
                     default="main")
     ap.add_argument("--analytic", type=int, choices=(0, 1), default=1)
     ap.add_argument("--static-geometry", type=int, choices=(0, 1), default=None)
+    ap.add_argument("--pose-reparam", type=int, default=0, metavar="CHUNK",
+                    help="profile bench's pose_reparam step with this reparam_chunk")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main needs a CUDA device")
@@ -141,6 +146,10 @@ def main() -> None:
     if args.static_geometry is not None:
         cfg = cfg.replace(static_geometry=bool(args.static_geometry))
     seeds = list(range(args.batch))
+    if args.pose_reparam:
+        cfg = cfg.replace(static_geometry=False, reparam=True, reparam_chunk=args.pose_reparam)
+        targets = main_path.pose_targets(bridge, randomize, beams, seeds, cfg,
+                                         render_seeds=[s + args.batch for s in seeds])
 
     analytic = bool(args.analytic)
 
@@ -149,7 +158,11 @@ def main() -> None:
             main_path.render_batch(bridge, randomize, beams, seeds, cfg, analytic)
 
     def step():
-        main_path.pattern_step(bridge, randomize, beams, seeds, cfg, analytic)
+        if args.pose_reparam:
+            main_path.pose_step(bridge, randomize, beams, torch.zeros(3, device=dev), seeds,
+                                targets, cfg)
+        else:
+            main_path.pattern_step(bridge, randomize, beams, seeds, cfg, analytic)
 
     print(f"{torch.cuda.get_device_name(0)}, {len(bridge._faces)} faces, "
           f"{args.size}x{args.size}, spp {cfg.spp}, batch {args.batch}, "
@@ -159,8 +172,9 @@ def main() -> None:
     if bridge._scene.projector() is None:
         return
     torch.cuda.reset_peak_memory_stats(dev)
-    report(f"pattern step, batch {args.batch}", step, args.top)
-    print(f"pattern step peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB",
+    name = f"pose_reparam step (chunk {args.pose_reparam})" if args.pose_reparam else "pattern step"
+    report(f"{name}, batch {args.batch}", step, args.top)
+    print(f"{name} peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB",
           flush=True)
 
 

@@ -10,6 +10,7 @@ from fireflies_tpu_torch.render.integrators import (
     render_shape_index,
 )
 from fireflies_tpu_torch.render.pathtracer import render_rgb, trace_rays
+from fireflies_tpu_torch.render.reparam import render_depth_reparam, reparam_ndc
 from fireflies_tpu_torch.render.types import (
     Camera,
     Geometry,
@@ -30,6 +31,8 @@ __all__ = [
     "render_shape_index",
     "render_from_laser",
     "random_depth_maps",
+    "render_depth_reparam",
+    "reparam_ndc",
     "trace_rays",
     "Camera",
     "Geometry",

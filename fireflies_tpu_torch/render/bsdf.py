@@ -80,13 +80,20 @@ def _eta_rel(params: dict) -> Tensor:
                        torch.where(eta >= 1.0, 1.0 + 1e-3, 1.0 - 1e-3), eta)
 
 
+def _sqrt0(x: Tensor) -> Tensor:
+    """sqrt(max(x, 0)) whose gradient is 0 where x <= 0 (sqrt of a clamp
+    passes 0 * inf = NaN back where x is exactly 0)."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def _fresnel_dielectric(cos_i: Tensor, eta: Tensor) -> Tensor:
     """Unpolarized dielectric Fresnel reflectance for cos_i >= 0 on the
     incident side and eta = n_t / n_i; 1 under total internal reflection."""
     cos_i = cos_i.clamp(0.0, 1.0)
     sin2_t = (1.0 - cos_i * cos_i) / torch.clamp(eta * eta, min=_EPS)
     tir = sin2_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = _sqrt0(1.0 - sin2_t)
     r_par = (eta * cos_i - cos_t) / torch.clamp(eta * cos_i + cos_t, min=_EPS)
     r_perp = (cos_i - eta * cos_t) / torch.clamp(cos_i + eta * cos_t, min=_EPS)
     f = 0.5 * (r_par * r_par + r_perp * r_perp)
@@ -356,7 +363,7 @@ def sample_v(params: dict, n: Vec3, wo: Vec3, gens=None, tangent: Vec3 | None = 
         f_g = _fresnel_dielectric(c, eta)
         wi_grefl = hh * (2.0 * c) - wo
         sin2_t = torch.clamp(1.0 - c * c, min=0.0) / torch.clamp(eta * eta, min=_EPS)
-        cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+        cos_t = _sqrt0(1.0 - sin2_t)
         wi_grefr = ((-wo) * (1.0 / eta) + hh * ((c / eta) - cos_t)).normalized()
         wi_glass = v3m.where((u3 < f_g) | (sin2_t >= 1.0), wi_grefl, wi_grefr)
         thin = params["thin"].clamp(0.0, 1.0)

@@ -26,7 +26,14 @@ the vertices.  Shadow rays of dead paths carry t_max = -1, which the
 kernels skip.  Also ported: the default and the tile-coherent bounce
 sampler (`coherent_bounce`), the spp loop, `ray_chunk`, and the shared
 first vertex (`shared_primary`, `_film_render_shared`).
-Reparameterization is not ported (RenderConfig refuses it).
+
+`RenderConfig.reparam` (render/reparam.py): `render_rgb` takes the image's
+value from an ordinary pass and its gradient from a second pass whose
+primary NDC samples are warped so that their gradients carry silhouette and
+shadow-edge motion, the radiance scaled by the warp's area factor
+(`_film_render_reparam`); with `reparam_indirect` the first
+`reparam_ind_bounces` BSDF-sampled directions are warped as well
+(`_sample_bounce`).
 """
 
 from __future__ import annotations
@@ -44,7 +51,15 @@ from fireflies_tpu_torch.render.intersect import (
     hit_attributes_table,
     occluded_any,
 )
-from fireflies_tpu_torch.render.rays import camera_rays_tiled, uniform, unpermute_rows
+from fireflies_tpu_torch.render.rays import (
+    camera_rays_tiled,
+    permute_rows,
+    pixel_to_ndc,
+    rays_from_ndc,
+    uniform,
+    unpermute_rows,
+)
+from fireflies_tpu_torch.render.reparam import reparam_direction, reparam_ndc
 from fireflies_tpu_torch.render.texture import (
     bilinear_sample_stack_packed,
     pack_neighborhood_stack,
@@ -148,15 +163,31 @@ def coherent_uniforms(gens, n_rays: int, device) -> tuple[Tensor, ...]:
 
 
 def _sample_bounce(gens, shade: dict, throughput: Vec3, active: Tensor,
-                   coherent: bool = False):
+                   coherent: bool = False, scene: RenderScene | None = None,
+                   config: RenderConfig | None = None, bounce: int = 0):
     """BSDF-sample the next path segment from a shaded vertex; returns
     (o, d, o_v, d_v, throughput, active, prev_pdf), prev_pdf the sample's
     pdf, which the next vertex's MIS weights read.  `coherent`: per-tile
-    shared draws (`coherent_uniforms`) instead of one draw per ray."""
+    shared draws (`coherent_uniforms`) instead of one draw per ray.  Under
+    `config.reparam_indirect` (and `bounce` below `reparam_ind_bounces`)
+    the sampled direction is warped (reparam.reparam_direction from the
+    offset origin, its constellation drawn after the BSDF sample) so that
+    occluder silhouettes seen from the vertex carry gradients; the
+    direction keeps its value and the throughput takes the area factor."""
     n, ns, p = shade["n"], shade["ns"], shade["p"]
     uniforms = coherent_uniforms(gens, n.x.shape[-1], n.x.device) if coherent else None
     wi, pdf, f = bsdf_mod.sample_v(shade["params"], ns, shade["wo"], gens,
                                    tangent=shade["tangent"], uniforms=uniforms)
+    if (config is not None and config.reparam and config.reparam_indirect
+            and bounce < config.reparam_ind_bounces):
+        side_pre = torch.where(n.dot(wi) >= 0, 1.0, -1.0)
+        x_ind = (p + n * (side_pre * _SHADOW_EPS)).to_array()
+        d_new, area_ind = reparam_direction(
+            x_ind, wi.to_array(), scene.geometry, gens, k_aux=config.reparam_k_aux,
+            radius=config.reparam_ind_radius, chunk=config.reparam_chunk,
+            tile_cull=config.tile_cull)
+        wi = from_array(d_new)
+        throughput = throughput * area_ind
     cos_i_s = n.dot(wi)
     cos_i = ns.dot(wi).abs()
     weight = torch.where(pdf > 1e-6, cos_i / torch.clamp(pdf, min=1e-6), 0.0)
@@ -394,7 +425,7 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
             return radiance.to_array()
         if bounce + 1 < config.max_bounces:
             o, d, o_v, d_v, throughput, active, prev_pdf = _sample_bounce(
-                gens, shade, throughput, active, config.coherent_bounce)
+                gens, shade, throughput, active, config.coherent_bounce, scene, config, bounce)
             o, d = o.detach(), d.detach()
     return radiance.to_array()
 
@@ -404,6 +435,8 @@ def _film_render(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
     `ray_chunk` below the film's ray count, the tile-major rays are padded
     (o = 0, d = 1) to whole chunks, traced chunk after chunk (each variant's
     generator draws on from one chunk to the next) and sliced back."""
+    if config.reparam:
+        return _film_render_reparam(scene, gens, config)
     o, d, inv_perm = camera_rays_tiled(scene.camera, config.width, config.height, gens=gens)
     cam = scene.camera.to_world[:, :3, 3]
     n, chunk = o.shape[1], config.ray_chunk
@@ -419,6 +452,31 @@ def _film_render(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
     else:
         radiance = trace_rays(scene, o, d, gens, config, primary_origin=cam)
     return unpermute_rows(radiance, inv_perm, config.width, config.height)
+
+
+def _film_render_reparam(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
+    """The warped-area pass, one sample per pixel; (B, H*W, 3) in row-major
+    pixel order.  Jittered row-major NDC samples (each variant's generator
+    draws the jitter, then the warp's constellation, then the path's
+    draws) are warped (reparam.reparam_ndc, with a shadow feature set for
+    every delta emitter), traced in tile-major order from the camera, and
+    scaled by the warp's area factor."""
+    w, h = config.width, config.height
+    dev = scene.geometry.vertices.device
+    py, px = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    jit_xy = uniform(gens, (h * w, 2), dev)
+    u = pixel_to_ndc(px.reshape(-1) + jit_xy[..., 0], py.reshape(-1) + jit_xy[..., 1], w, h)
+    positions = lights_mod.emitter_positions(scene.lights, scene.projector)
+    light_positions = torch.stack(positions, dim=1) if positions else None
+    u_rep, area = reparam_ndc(scene.camera, u, scene.geometry, gens, k_aux=config.reparam_k_aux,
+                              radius=config.reparam_radius, light_positions=light_positions,
+                              chunk=config.reparam_chunk, tile_cull=config.tile_cull)
+    o, d = rays_from_ndc(scene.camera, u_rep)
+    radiance = trace_rays(scene, permute_rows(o, w, h), permute_rows(d, w, h), gens, config,
+                          primary_origin=scene.camera.to_world[:, :3, 3])
+    radiance = radiance * permute_rows(area, w, h)[..., None]
+    return unpermute_rows(radiance, None, w, h)
 
 
 def _film_render_shared(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
@@ -455,10 +513,26 @@ def _film_render_shared(scene: RenderScene, gens, config: RenderConfig) -> Tenso
 def render_rgb(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
     """Monte-Carlo RGB render of every variant, (B, H, W, 3).  `gens`: one
     torch.Generator per variant (pixel jitter and bounce draws).  With
-    `shared_primary` (and no `ray_chunk`) the first vertex is shared by the
-    spp samples (_film_render_shared); otherwise the spp samples are a
-    Python loop of whole passes."""
-    if config.shared_primary and not config.ray_chunk:
+    `shared_primary` (and no `ray_chunk` or `reparam`) the first vertex is
+    shared by the spp samples (_film_render_shared); otherwise the spp
+    samples are a Python loop of whole passes.
+
+    With `reparam` the image's value comes from an ordinary pass without
+    autograd and its gradient from a second, warped-area pass (the
+    generators draw both, in that order).  The two must not share samples:
+    for a nonlinear loss g(img) a sample that supplies both g'(img) and
+    d(img) biases the product (with an L2 loss every boundary sample lands
+    where img - target is 0, and silhouette gradients vanish)."""
+    if config.reparam:
+        with torch.no_grad():
+            primal = render_rgb(scene, gens, config.replace(reparam=False))
+        grad_img = _render_rgb_samples(scene, gens, config)
+        return primal + (grad_img - grad_img.detach())  # in value exactly primal
+    return _render_rgb_samples(scene, gens, config)
+
+
+def _render_rgb_samples(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
+    if config.shared_primary and not config.reparam and not config.ray_chunk:
         img = _film_render_shared(scene, gens, config)
         return img.reshape(scene.batch, config.height, config.width, 3)
     total = None

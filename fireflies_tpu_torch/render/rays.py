@@ -3,7 +3,9 @@
 Camera space looks down -Z, +Y up, x-fov in degrees with square pixels;
 pixel (0, 0) is the top-left of the image.  Only the tile-major route is
 ported: the film must divide into 128x16-pixel tiles, so the pixel order is
-computed arithmetically and undone with a reshape.
+computed arithmetically and undone with a reshape (`unpermute_rows`), and
+row-major results go to tile-major order by the inverse reshape
+(`permute_rows`, what the warped-area pass needs).
 """
 
 from __future__ import annotations
@@ -82,6 +84,22 @@ def unpermute_rows(x: Tensor, inv_perm, width: int, height: int,
     b = x.shape[0]
     lead = x.shape[2:]
     y = x.reshape(b, height // th, width // tw, th, tw, *lead).transpose(2, 3)
+    return y.reshape(b, width * height, *lead)
+
+
+def permute_rows(x: Tensor, width: int, height: int,
+                 tile: tuple[int, int] = (128, 16)) -> Tensor:
+    """Row-major per-pixel values (B, N, ...) -> tile-major order, the
+    order of camera_rays_tiled; the inverse of `unpermute_rows` (the
+    reference's `_tile_permutation` perm, for films that divide into
+    tiles)."""
+    tw, th = tile
+    if width % tw or height % th:
+        raise NotImplementedError(
+            f"film {width}x{height} must divide into {tw}x{th} tiles")
+    b = x.shape[0]
+    lead = x.shape[2:]
+    y = x.reshape(b, height // th, th, width // tw, tw, *lead).transpose(2, 3)
     return y.reshape(b, width * height, *lead)
 
 

@@ -200,16 +200,20 @@ class Hit(_Replace):
     mat: Optional[Tensor] = None
 
 
-_NOT_PORTED = ("reparam",)
-
-
 @dataclasses.dataclass(frozen=True)
 class RenderConfig(_Replace):
     """Static render settings, with the reference's fields and defaults.
 
-    `reparam` is not ported and raises NotImplementedError when set (its
-    reparam_* tuning fields are inert without it).  `ray_chunk` traces the
-    film in chunks of that many rays, one after the other.
+    `reparam` renders with warped-area boundary gradients (render/reparam.py):
+    the value from an ordinary pass, the gradient from a second pass whose
+    primary samples are warped (`reparam_k_aux` aux rays in an NDC disk of
+    `reparam_radius`, recomputed `reparam_chunk` rays at a time in the
+    backward; 0 = the whole film), with shadow-boundary terms for every
+    delta emitter; `reparam_indirect` also warps the BSDF-sampled
+    directions of the first `reparam_ind_bounces` bounces (radius
+    `reparam_ind_radius`).  The film must divide into 128x16 tiles.
+    `ray_chunk` traces the film in chunks of that many rays, one after the
+    other (not under `reparam`).
     `coherent_bounce` draws one set of bounce uniforms per 2048-ray tile,
     shared by the tile's rays; `shared_primary` computes the first path
     vertex (primary hit and its NEE) once for all spp samples (see
@@ -249,9 +253,5 @@ class RenderConfig(_Replace):
     tile_cull: bool = True
 
     def __post_init__(self):
-        for name in _NOT_PORTED:
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"RenderConfig.{name} is not ported to fireflies_tpu_torch yet")
         if self.backend != "auto":
             raise ValueError(f"RenderConfig.backend={self.backend!r}: only 'auto' is supported")

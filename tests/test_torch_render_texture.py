@@ -15,8 +15,10 @@ batched pattern step, on the vocalfold scene (1440 faces) and a 128x32 film
     gradient agree up to summation order, within 1e-5 relative (2 variants,
     2 bounces, the vocalfold scene at resolution 8, 416 faces);
   * `bench.measure` on the CPU at a tiny size prints a well-formed line, and
-    every row of its VARIANTS either runs or names its refusal.
+    every row of its VARIANTS runs (none is refused).
 """
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -119,7 +121,13 @@ def test_bench_measure_cpu_line():
     assert (detail["batch"], detail["repeats"], detail["size"], detail["spp"]) == (1, 1, 128, 1)
     spread = detail["renders_per_sec_dispersion"]
     assert spread["trials"] == 1 and spread["min"] == spread["max"] == line["value"]
-    refused = [row for row in bench.VARIANTS if bench.refusal(row)]
-    assert len(bench.VARIANTS) == 22 and len(refused) == 2
-    assert all("not ported" in bench.refusal(row) for row in refused)
-    assert all(row.get("grad_mode") == "pose_reparam" for row in refused)
+    # Every row runs: none is refused any more, and each row's keys are
+    # measure's arguments (or the datagen row's flag alone).
+    assert len(bench.VARIANTS) == 22 and not hasattr(bench, "refusal")
+    args = set(inspect.signature(bench.measure).parameters) - {"device"}
+    for row in bench.VARIANTS:
+        assert row == {"datagen": 1} or set(row) <= args, row
+        assert row.get("grad_mode", "beams") in ("beams", "pose_soft", "pose_reparam"), row
+    reparam_rows = [row for row in bench.VARIANTS if row.get("grad_mode") == "pose_reparam"]
+    assert [(r["size"], r["reparam_chunk"], r["batch"]) for r in reparam_rows] == [
+        (256, 1024, 2), (512, 8192, 2)]
