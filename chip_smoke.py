@@ -123,6 +123,18 @@ Phases (each raises on failure, so any failure exits non-zero):
      one counted farm dispatch (`main_path.datagen_batch`, 8 frames, spp
      4); bench's datagen row at its full parameters (accepted frames/s, one
      JSON line), counted too;
+  estimation: pattern initialization (`estimation.initialize_laser`) on
+     the main shape at `LaserConfig()`'s defaults (150 beams, 16 depth maps
+     at 256x256), projector fov 30: GRID, RANDOM, POISSON and SMARTY, each
+     counted (SMARTY: one B1 launch, its depth maps in one batch, and no
+     other kernel; the other modes: none), beams finite, unit and forward,
+     SMARTY's seconds split into depth maps, Bridson (host) and the rest;
+     SMARTY on the card against the CPU plain path on the same variants
+     at 128x32, 4 maps (depth maps and radius map within 1e-5 relative,
+     the re-aimed beams of the same pixels within 1e-5); the SMARTY
+     pattern's epipolar lines at 256x256 against the CPU (1e-5 of the
+     max); `optimize_pattern_through_render` from the SMARTY beams as in
+     optimize (counted: B1 and B3, no other), s/step and peak memory;
   7. probe: X2 (`perf_probe.vpu_roof`, its counter set to 0 just before and
      read just after) bit for bit against its plain version, its time,
      bound and rate of unfused FP32 operations; the kernel roof (B3 on a
@@ -144,9 +156,12 @@ Phases (each raises on failure, so any failure exits non-zero):
      each.
 Then one JSON line with the kernels (each with its fused operations per
 tested pair, `ops_per_pair`, its counted launches on every path that runs
-it, `launches_by_path`, and for the nine intersection kernels
+it, `launches_by_path` (`estimation` for SMARTY's depth maps,
+`estimation_optimize` for the optimizer from its pattern), and for the
+nine intersection kernels
 `least_pairs` and `least_bound_ms`, and for each path beyond its own that
-replays it (geometry, reference_geometry, materials, emitters, reparam) its cases,
+replays it (geometry, reference_geometry, materials, emitters, reparam,
+estimation) its cases,
 mismatches and times (B4's any-hit times on emitters); for X1 beside them its tensor-core
 multiply-adds and reciprocals per pair and the bounds with d' on the FP32
 pipe; for X2 its
@@ -1047,6 +1062,178 @@ def datagen_phase(dev) -> tuple[dict, dict]:
     return dispatch, row
 
 
+def _unit_forward(tag: str, rays) -> None:
+    """Beams (K, 3) on the card, finite, unit (1e-5) and forward (z < 0)."""
+    import torch  # noqa: PLC0415
+
+    norm_err = float((rays.norm(dim=-1) - 1).abs().max())
+    if not (rays.is_cuda and rays.ndim == 2 and rays.shape[0] > 0 and torch.isfinite(rays).all()
+            and norm_err <= 1e-5 and float(rays[:, 2].max()) < 0):
+        raise AssertionError(f"{tag}: beams not finite, unit and forward on the card "
+                             f"(max |1 - |d|| {norm_err})")
+
+
+def estimation_phase(dev) -> tuple[dict, dict]:
+    """Pattern initialization (`estimation.initialize_laser`) on the main
+    shape at full width (vocalfold resolution 24, 1440 faces), projector
+    fov `main_path.PROJECTOR_FOV`, `LaserConfig(**EST_CONFIG)` (the
+    defaults: 150 beams, 16 depth maps at 256x256):
+      1. each of GRID, RANDOM, POISSON and SMARTY once, with every counter
+         set to 0 just before and read just after: the beams finite, unit
+         (1e-5) and forward (z < 0); SMARTY launches B1 once (its depth
+         maps in one batch) and no other kernel, the other modes none; then
+         a second SMARTY run's seconds split into depth maps (the variants
+         and their render, to the device's end), Bridson (host) and the
+         rest; that run's B1 launch replayed through the kernel and its
+         plain version (2 variants), timed, with its bounds;
+      2. SMARTY on the card against the CPU path (plain versions) on the
+         same variants, drawn once on the card, at EST_CHECK's film and
+         maps (radii 2-8 px, for more chosen pixels on the small film):
+         depth maps with the same hit mask and within 1e-5 relative,
+         the radius map within 1e-5 relative, and the beams that
+         `laser_from_ndc_points` aims at the card's chosen pixels within
+         1e-5 (Bridson between them runs on the host and may fork on an
+         ulp of its radius map, so its points are not compared);
+      3. `Laser.render_epipolar_lines` of the SMARTY pattern at 256x256 in
+         the scene's camera, card against CPU, within 1e-5 of the max;
+      4. `optim.optimize_pattern_through_render` from the SMARTY beams, as
+         the optimize phase runs it (16 variants at 512x512, 2 bounces, the
+         analytic projector, OPT_STEPS steps), counted: B1 and B3 and no
+         other kernel, finite losses, unit beams; s/step of steps 2 on and
+         peak memory.
+    Returns (the replay's results, SMARTY's launches, the optimizer's)."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path, optim  # noqa: PLC0415
+    from fireflies_tpu_torch.estimation import LaserConfig, initialize_laser  # noqa: PLC0415
+    from fireflies_tpu_torch.estimation import laser_estimation  # noqa: PLC0415
+    from fireflies_tpu_torch.projection.camera import Camera  # noqa: PLC0415
+    from fireflies_tpu_torch.projection.laser import Laser  # noqa: PLC0415
+
+    cpu = torch.device("cpu")
+    fov = main_path.PROJECTOR_FOV
+    bridge, randomize, _, cfg = main_path.build_shape("main", dev, SIZE)
+    scene = bridge._scene
+    config = LaserConfig(**EST_CONFIG)
+    log(f"[estimation] main shape ({len(bridge._faces)} faces), projector fov {fov}, {config}")
+
+    # 1. the four modes, counted.
+    smarty = {}
+    for mode in ("GRID", "RANDOM", "POISSON", "SMARTY"):
+        out = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = count_launches(lambda: out.update(laser=initialize_laser(
+            scene, bridge, config, mode=mode, projector_fov=fov, device=dev, info=smarty)))
+        secs = time.perf_counter() - t0
+        rays = out["laser"].local_rays()
+        log(f"[estimation/{mode}] {rays.shape[0]} beams in {secs:.4f} s; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        _unit_forward(f"estimation/{mode}", rays)
+        if mode == "SMARTY":
+            check_launches("estimation/SMARTY", counts, (B1,))
+            if counts[B1] != 1:
+                raise AssertionError(f"SMARTY's depth maps took {counts[B1]} B1 launches, not 1")
+            smarty_rays, smarty_launches = rays, counts
+        elif any(counts.values()):
+            raise AssertionError(f"estimation/{mode} launched a kernel: {counts}")
+    info = {}
+    torch.cuda.synchronize()
+    replays = kernel_phase("estimation", lambda: initialize_laser(
+        scene, bridge, config, mode="SMARTY", projector_fov=fov, device=dev, info=info), None, 2,
+        replay_any=False)
+    rest = info["total_s"] - info["depth_maps_s"] - info["bridson_s"]
+    log(f"[estimation/SMARTY] again: {info['total_s']:.4f} s = depth maps "
+        f"{info['depth_maps_s']:.4f} s ({config.n_depthmaps} variants, one render at "
+        f"{config.image_size[0]}x{config.image_size[1]}) + Bridson {info['bridson_s']:.4f} s "
+        f"(host) + the rest {rest:.4f} s; mean depth {float(info['mean_depth']):.6g}, "
+        f"{int(info['chosen'].numel())} chosen pixels, epipolar mask "
+        f"{float(info['constraint'].mean()):.4g} of the film")
+
+    # 2. SMARTY on the card against the CPU path on the same variants.
+    w, h, n = EST_CHECK
+    small = LaserConfig(**dict(EST_CONFIG, n_depthmaps=n, image_size=(w, h), smarty_min_radius=2.0,
+                               smarty_max_radius=8.0))
+    params = [randomize(torch.Generator(device=dev).manual_seed(100 + i), i) for i in range(n)]
+    ref = randomize(torch.Generator(device=dev).manual_seed(0), 0)
+    card, host = {}, {}
+    for device, run in ((dev, card), (cpu, host)):
+        variants = (bridge.assemble([{k: v.to(device) for k, v in p.items()} for p in params]),
+                    bridge.assemble([{k: v.to(device) for k, v in ref.items()}]))
+        initialize_laser(scene, bridge, small, mode="SMARTY", projector_fov=fov, device=device,
+                         variants=variants, info=run)
+    d_k, d_p = card["depth_maps"].cpu(), host["depth_maps"]
+    hit_equal = torch.equal(d_k > 0, d_p > 0)
+    both = (d_k > 0) & (d_p > 0)
+    d_rel = float(((d_k - d_p).abs() / d_p.clamp(min=1e-30))[both].max()) if both.any() else 0.0
+    r_k, r_p = card["radius_map"].cpu(), host["radius_map"]
+    r_rel = float(((r_k - r_p).abs() / r_p).max())
+    chosen = card["chosen"]
+    beams = [laser_estimation.laser_from_ndc_points(
+        run["camera"], run["laser_world"][:3, 3], run["mean_depth"],
+        chosen.to(run["laser_world"].device), (h, w)).cpu() for run in (card, host)]
+    b_err = float((beams[0] - beams[1]).abs().max()) if chosen.numel() else 0.0
+    log(f"[estimation/check] {w}x{h}, {n} maps, CUDA against CPU plain: hit masks "
+        f"{'equal' if hit_equal else 'DIFFER'} ({int(both.sum())} hits, "
+        f"{int((d_k == d_p).sum())} of {d_p.numel()} depths equal), depth max relative "
+        f"{d_rel:.3g}; radius map max relative {r_rel:.3g}; mean depth "
+        f"{float(card['mean_depth']):.8g} / {float(host['mean_depth']):.8g}; beams at the card's "
+        f"{chosen.numel()} chosen pixels max |difference| {b_err:.3g}; chosen pixels "
+        f"{'equal' if torch.equal(chosen.cpu(), host['chosen']) else 'differ (Bridson forked)'}")
+    if not (hit_equal and bool(both.any()) and d_rel <= 1e-5):
+        raise AssertionError("estimation: the CUDA depth maps disagree with the CPU ones")
+    if r_rel > 1e-5:
+        raise AssertionError("estimation: the CUDA radius map disagrees with the CPU one")
+    if not (chosen.numel() > 0 and b_err <= 1e-5):
+        raise AssertionError("estimation: the beams of the chosen pixels disagree")
+
+    # 3. the SMARTY pattern's epipolar lines, card against CPU.
+    cam_fov = float(smarty["camera"].fov[0])
+    lines = []
+    for device in (dev, cpu):
+        laser = Laser(scene.projector(), smarty_rays.to(device), fov=fov)
+        lines.append(laser.render_epipolar_lines(Camera(scene.camera(), fov=cam_fov,
+                                                        device=device),
+                                                 EST_LINE_SIGMA, EST_LINE_SIZE).cpu())
+    scale = float(lines[1].abs().max())
+    l_err = float((lines[0] - lines[1]).abs().max())
+    log(f"[estimation/epipolar] {tuple(lines[0].shape)} line splats (sigma {EST_LINE_SIGMA}), "
+        f"max {scale:.4g}, CUDA against CPU max |difference| {l_err:.3g}")
+    if not (scale > 0 and l_err <= 1e-5 * scale):
+        raise AssertionError("estimation: the CUDA epipolar lines disagree with the CPU ones")
+
+    # 4. the optimizer from the SMARTY pattern.
+    objective = optim.dot_coverage_objective(1)
+    loss_fn = main_path.variant_loss(bridge, randomize, cfg, objective)
+    starts, res = [], {}
+
+    def timed_loss(rays, gens, step):
+        torch.cuda.synchronize()  # the previous step has ended
+        starts.append(time.perf_counter())
+        return loss_fn(rays, gens, step)
+
+    def drive():
+        res["opt"] = optim.optimize_pattern_through_render(
+            timed_loss, smarty_rays, seed=OPT_SEED, steps=OPT_STEPS, batch=BATCH,
+            learning_rate=5e-3, fov_deg=fov, respawn_oob=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt_launches = count_launches(drive)
+    end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rays, losses = res["opt"].rays, res["opt"].losses.tolist()
+    step_s = (end - starts[1]) / (OPT_STEPS - 1)
+    log(f"[estimation/optimize] from {smarty_rays.shape[0]} SMARTY beams, {OPT_STEPS} steps of "
+        f"{BATCH} variants at {SIZE}x{SIZE}: losses {losses}; {step_s:.4f} s/step (steps "
+        f"2-{OPT_STEPS}; step 1 {starts[1] - starts[0]:.4f} s), peak {peak:.3f} GiB; launches "
+        f"{ {k: v for k, v in opt_launches.items() if v} }")
+    check_launches("estimation/optimize", opt_launches, (B1, B3))
+    _unit_forward("estimation/optimize", rays)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("estimation/optimize: a step's loss is not finite")
+    return replays, smarty_launches, opt_launches
+
+
 def probe_phase(dev) -> dict:
     """X2 through the probe's entry point with its counter set to 0 just
     before and read just after, then bit for bit against its plain version
@@ -1230,6 +1417,9 @@ C2_VARIANTS = 4
 FIRST = {"closest": 1, "any": 1}  # kernel_phase: replay the first launch of each mode
 OPT_SEED, OPT_STEPS = 0, 3
 BENCH_REPEATS, BENCH_TRIALS = 3, 2
+EST_CONFIG: dict = {}  # estimation: LaserConfig's defaults (150 beams, 16 maps, 256x256)
+EST_CHECK = (128, 32, 4)  # estimation: the CPU comparison's film (W, H) and maps
+EST_LINE_SIGMA, EST_LINE_SIZE = 10.0, (256, 256)  # estimation: the epipolar lines
 MXU = "intersect_mxu_shared"
 B1, B3 = "intersect_shared_culled", "intersect_general"
 B2, B4 = "intersect_stream_culled", "intersect_stream_general_culled"
@@ -1368,6 +1558,11 @@ def main() -> int:
     path_launches["datagen"], path_launches["datagen_row"] = datagen_phase(dev)
     log(f"[datagen] {time.perf_counter() - t_farm:.1f} s")
 
+    t_est = time.perf_counter()
+    res, path_launches["estimation"], path_launches["estimation_optimize"] = estimation_phase(dev)
+    kres.update(res)
+    log(f"[estimation] {time.perf_counter() - t_est:.1f} s")
+
     t_mxu = time.perf_counter()
     x1 = mxu_phase(dev)
     log(f"[mxu] {time.perf_counter() - t_mxu:.1f} s")
@@ -1401,7 +1596,8 @@ def main() -> int:
             "any_hit_least_bound_ms": any_hit["least_bound_ms"],
             # Counted launches on every path that runs the kernel: one
             # forward batch of each shape, the optimizer's OPT_STEPS steps,
-            # one farm dispatch and bench's datagen row.
+            # one farm dispatch, bench's datagen row, SMARTY's depth maps
+            # and the optimizer's steps from its pattern.
             "launches_by_path": {p: c[name] for p, c in path_launches.items() if c[name]},
         }
         if "lists_ms" in closest:
@@ -1409,7 +1605,8 @@ def main() -> int:
         # The face-table route's launches: B2 and B4 closest-hit without
         # emitted attributes, B1 and B3 with smooth normals; the shading
         # paths' (B4's per-ray-origin any-hit on emitters).
-        for path in ("geometry", "reference_geometry", "materials", "emitters", "reparam"):
+        for path in ("geometry", "reference_geometry", "materials", "emitters", "reparam",
+                     "estimation"):
             rows = [r for r in kres.values() if r["kernel"] == name and r["path"] == path]
             if rows:
                 entry[path] = {"cases": len(rows),

@@ -130,3 +130,10 @@ class Transformable:
         """Sample every float/vec3 attribute; returns {attr_key: value}."""
         items = list(self._float_attributes.items()) + list(self._vec3_attributes.items())
         return {k: s.sample(gen, step, train, device) for k, s in items}
+
+    def non_randomized_world(self) -> np.ndarray:
+        """The (4, 4) numpy world of the unrandomized pose: the parents'
+        worlds times this entity's own, without the centroid."""
+        if self._parent is None:
+            return self._world
+        return self._parent.non_randomized_world() @ self._world

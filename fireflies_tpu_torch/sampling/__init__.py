@@ -1,7 +1,8 @@
-"""Sampling layer (port of fireflies_tpu/sampling: the samplers; the
-Perlin noise texture and the Poisson-disk generators are not ported yet)."""
+"""Sampling layer (port of fireflies_tpu/sampling: the samplers and the
+blue-noise generators; the Perlin noise texture is not ported yet)."""
 
 from fireflies_tpu_torch.sampling.base import ConstantSampler, Sampler
+from fireflies_tpu_torch.sampling.poisson import bridson, dart_throwing
 from fireflies_tpu_torch.sampling.samplers import (
     AnimationSampler,
     GaussianSampler,
@@ -18,4 +19,6 @@ __all__ = [
     "UniformIntegerSampler",
     "UniformScalarToVec3Sampler",
     "AnimationSampler",
+    "bridson",
+    "dart_throwing",
 ]
