@@ -40,7 +40,11 @@ normal maps (the face-table route; B1 and B3), and `emitters`, cornell_like
 with a glass sphere (9046 faces), a thin translucent box, anisotropic and
 flat walls, an area light, a point light's aperture and an envmap with its
 NEE (B2 for camera rays, B4 for bounce rays and, from per-ray origins, for
-the aperture, envmap and area-light shadow rays).
+the aperture, envmap and area-light shadow rays).  Two more load the
+vocalfold scene from files, as users do (`scene_files`): `xml`
+(tools/parity_scenes/vocalfold.xml through `scene_from_mitsuba_xml`) and
+`yaml` (a scene description written and read back by `scene_io`, the fold
+animated from OBJ frames, a Perlin texture on the mucosa); both B1 and B3.
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: the card's name and power limit; CUDA must be available;
@@ -106,6 +110,16 @@ Phases (each raises on failure, so any failure exits non-zero):
      analytic boundary flux, on the card alone; one counted pose step (B1
      and B3 only, at the counts `reparam_expected` derives from the code),
      then s/step and peak memory;
+  scene_files (`xml`, then `yaml`; 512x512, batch 16, spp 1, 2 bounces, the
+     analytic projector): the host seconds of 3 loads of the scene file;
+     every B1 and B3 launch of one forward batch replayed against the plain
+     versions (2 variants, 0 rays off); CUDA against the CPU plain path at
+     128x32 with the beam gradient, as on materials; phase 5 (B1 5 and B3
+     1 launches, no other; renders/s, peak memory); phase 6; each path's
+     line with the nvidia-smi line; then `lbs` and its pose gradient on a
+     synthetic 3-joint rig and `rand_perlin_2d` / the noise sampler from
+     injected draws, CUDA against the CPU (1e-5 of the vertices' scale,
+     1e-4 relative L2, 1e-5 absolute);
   then the two loops, each with every counter set to 0 just before it and
   read just after (B1 and B3 launched, no other kernel):
   optimize: `optim.optimize_pattern_through_render` over
@@ -161,7 +175,7 @@ it, `launches_by_path` (`estimation` for SMARTY's depth maps,
 nine intersection kernels
 `least_pairs` and `least_bound_ms`, and for each path beyond its own that
 replays it (geometry, reference_geometry, materials, emitters, reparam,
-estimation) its cases,
+estimation, xml, yaml) its cases,
 mismatches and times (B4's any-hit times on emitters); for X1 beside them its tensor-core
 multiply-adds and reciprocals per pair and the bounds with d' on the FP32
 pipe; for X2 its
@@ -901,6 +915,144 @@ def reparam_phase(dev, seeds) -> tuple[dict, dict]:
 
 
 
+SCENE_FILE_PATHS = ("xml", "yaml")
+LOAD_REPEATS = 3
+
+
+def _load_scene_file(tag: str, tmp: str):
+    """(scene, bridge_kwargs, load seconds of each repeat) of a scene file
+    path: `main_path.xml_scene` (tools/parity_scenes/vocalfold.xml), or the
+    `yaml` shape's files written into `tmp` once and loaded by
+    `main_path.yaml_scene`; only the loads are timed."""
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    path = main_path.write_yaml_scene(tmp) if tag == "yaml" else main_path.VOCALFOLD_XML
+    load = main_path.yaml_scene if tag == "yaml" else main_path.xml_scene
+    times = []
+    for _ in range(LOAD_REPEATS):
+        t0 = time.perf_counter()
+        scene, kw = load(path)
+        times.append(time.perf_counter() - t0)
+    return scene, kw, times
+
+
+def _rig(seed: int = 0):
+    """A synthetic 3-joint skinning rig (numpy, float32): rest vertices
+    (12, 3) along +y, a nearest-vertex joint regressor (3, 12), parents
+    (-1, 0, 1), hard skin weights by segment (12, 3), pose blend shapes
+    (18, 12, 3) and a pose (3, 3)."""
+    import numpy as np  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    v, j = 12, 3
+    rest = np.stack([rng.uniform(-0.1, 0.1, v), np.linspace(0, 3.0, v), np.zeros(v)],
+                    -1).astype(np.float32)
+    j_reg = np.zeros((j, v), np.float32)
+    for ji, y in enumerate((0.0, 1.0, 2.0)):
+        j_reg[ji, int(np.argmin(np.abs(rest[:, 1] - y)))] = 1.0
+    weights = np.zeros((v, j), np.float32)
+    weights[np.arange(v), np.minimum(rest[:, 1].astype(int), 2)] = 1.0
+    posedirs = rng.normal(0, 0.001, (9 * (j - 1), v, 3)).astype(np.float32)
+    pose = rng.normal(0, 0.4, (j, 3)).astype(np.float32)
+    return rest, j_reg, np.array([-1, 0, 1]), weights, posedirs, pose
+
+
+def scene_modules_check(dev) -> None:
+    """The scene modules' tensor math, CUDA against the CPU on the same
+    inputs: `entity.shape_model.lbs` on `_rig` (vertices within 1e-5 of
+    their largest magnitude) and its pose gradient (1e-4 relative L2);
+    `rand_perlin_2d` with injected angles at every candidate resolution
+    of a 256^2 texture, and `NoiseTextureLerpSampler.texture` from one set
+    of draws (1e-5 absolute)."""
+    import numpy as np  # noqa: PLC0415
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.entity.shape_model import lbs  # noqa: PLC0415
+    from fireflies_tpu_torch.sampling import noise_texture_lerp as noise  # noqa: PLC0415
+
+    rest, j_reg, parents, weights, posedirs, pose = _rig()
+    w_out = np.random.default_rng(1).normal(size=rest.shape).astype(np.float32)
+
+    def skin(device):
+        q = torch.tensor(pose, device=device, requires_grad=True)
+        out = lbs(torch.tensor(rest, device=device), q, torch.tensor(j_reg, device=device),
+                  parents, torch.tensor(weights, device=device),
+                  torch.tensor(posedirs, device=device))
+        (out * torch.tensor(w_out, device=device)).sum().backward()
+        return out.detach().cpu(), q.grad.cpu()
+
+    (v_k, g_k), (v_p, g_p) = skin(dev), skin(torch.device("cpu"))
+    v_err = float((v_k - v_p).abs().max() / v_p.abs().max())
+    g_err = float((g_k - g_p).norm() / g_p.norm())
+    sampler = noise.NoiseTextureLerpSampler.create(*main_path.NOISE_COLORS,
+                                                   texture_shape=main_path.NOISE_TEXTURE)
+    rng = np.random.default_rng(2)
+    angles = [(2 * np.pi * rng.random((r + 1, r + 1))).astype(np.float32)
+              for r in sampler.resolutions()]
+    layer_err = max(float((noise.rand_perlin_2d(None, sampler.texture_shape, (r, r), a, dev).cpu()
+                           - noise.rand_perlin_2d(None, sampler.texture_shape, (r, r), a, "cpu")
+                           ).abs().max()) for r, a in zip(sampler.resolutions(), angles))
+    tex_k, tex_p = (sampler.texture(2, 3, 0.8, angles, d).cpu() for d in (dev, "cpu"))
+    tex_err = float((tex_k - tex_p).abs().max())
+    log(f"[scene_files/modules] lbs on a 3-joint rig, CUDA against CPU: vertices {v_err:.3g} of "
+        f"their scale, pose gradient {g_err:.3g} relative L2; rand_perlin_2d at resolutions "
+        f"{sampler.resolutions()} on {sampler.texture_shape}: max |diff| {layer_err:.3g}; the "
+        f"sampler's texture {tuple(tex_k.shape)}: {tex_err:.3g}")
+    if not (torch.isfinite(v_k).all() and g_p.abs().max() > 0 and v_err <= 1e-5
+            and g_err <= 1e-4 and layer_err <= 1e-5 and tex_err <= 1e-5):
+        raise AssertionError("scene_files: lbs or the Perlin noise disagrees with the CPU")
+
+
+def scene_files_phase(dev, seeds, smi: str) -> tuple[dict, dict]:
+    """The two paths that load the vocalfold scene from a file
+    (`main_path.BUILDERS`): `xml` (tools/parity_scenes/vocalfold.xml
+    through `scene_from_mitsuba_xml`, 1440 faces, the projector and
+    examples/vocalfold_scene.py's randomization added after loading) and
+    `yaml` (a description written by `save_scene_description` and read by
+    `load_scene`, the fold animated from OBJ frames, a 256^2 Perlin texture
+    on the mucosa; 1536 faces).  For each: the host seconds of loading
+    (LOAD_REPEATS loads); every B1 and B3 launch of one forward batch
+    replayed against the plain versions (plain on 2 variants, 0 rays off);
+    CUDA against the CPU plain path at 128x32 with the beam gradient
+    (`reference_phase`); a counted forward (B1 = 5, B3 = 1, no other) with
+    renders/s and peak memory; one pattern step.  Then
+    `scene_modules_check`.  Returns (the replays, each path's forward
+    launches)."""
+    import tempfile  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    res_all, counts_by_path = {}, {}
+    for tag in SCENE_FILE_PATHS:
+        t_path = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            scene, kw, load_s = _load_scene_file(tag, tmp)
+        bridge, randomize, beams, cfg = main_path.shape_from_scene(scene, kw, dev, SIZE)
+        log(f"[{tag}/load] {statistics.median(load_s):.4f} s (loads {[round(t, 4) for t in load_s]}); "
+            f"{len(bridge._faces)} faces, meshes {[m.name() for m in scene.meshes()]}, binding "
+            f"{scene.mesh_material_binding()}, maps on {sorted(bridge._texture_mats)}")
+        res = kernel_phase(tag, lambda: main_path.render_batch(bridge, randomize, beams, seeds,
+                                                               cfg), None, 2, replay_any=False,
+                           time_plain=False)
+        kernels = sorted({r["kernel"] for r in res.values()})
+        off = sum(r["mismatched"] for r in res.values())
+        if kernels != sorted([B1, B3]) or off:
+            raise AssertionError(f"{tag}: replays of {kernels}, {off} rays off")
+        log(f"[{tag}/reference]")
+        reference_phase(tag, bridge, randomize, beams, dev, cfg.replace(width=128, height=32),
+                        grad=("beams",))
+        counts = forward_phase(tag, bridge, randomize, beams, seeds, cfg, (B1, B3))
+        if counts[B1] != 5 or counts[B3] != 1:
+            raise AssertionError(f"{tag}: a forward launched {counts}, not B1 5 and B3 1")
+        pattern_phase(tag, bridge, randomize, beams, seeds, cfg, dev)
+        log(f"[{tag}] {smi}: load {statistics.median(load_s):.4f} s; {time.perf_counter() - t_path:.1f} s")
+        res_all.update(res)
+        counts_by_path[tag] = counts
+    scene_modules_check(dev)
+    return res_all, counts_by_path
+
+
 def bench_phase() -> list[dict]:
     """`bench.measure` for the headline row, the texture row, the reference
     shape, and the face-table route's rows (the reference shape unshared
@@ -1550,6 +1702,12 @@ def main() -> int:
         kres.update(res)
         log(f"[{tag}] {time.perf_counter() - t_path:.1f} s")
 
+    t_files = time.perf_counter()
+    res, counts = scene_files_phase(dev, seeds, smi)
+    kres.update(res)
+    path_launches.update(counts)
+    log(f"[scene_files] {time.perf_counter() - t_files:.1f} s")
+
     t_opt = time.perf_counter()
     path_launches["optimize"] = optimize_phase(dev)
     log(f"[optimize] {time.perf_counter() - t_opt:.1f} s")
@@ -1606,7 +1764,7 @@ def main() -> int:
         # emitted attributes, B1 and B3 with smooth normals; the shading
         # paths' (B4's per-ray-origin any-hit on emitters).
         for path in ("geometry", "reference_geometry", "materials", "emitters", "reparam",
-                     "estimation"):
+                     "estimation", "xml", "yaml"):
             rows = [r for r in kres.values() if r["kernel"] == name and r["path"] == path]
             if rows:
                 entry[path] = {"cases": len(rows),

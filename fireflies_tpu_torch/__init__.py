@@ -22,9 +22,42 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from fireflies_tpu_torch import (  # noqa: E402, F401
+    emitter,
+    entity,
+    graphics,
+    material,
+    projection,
+    sampling,
+    utils,
+)
 from fireflies_tpu_torch.emitter import Light  # noqa: E402
-from fireflies_tpu_torch.entity import Mesh, Transformable  # noqa: E402
+from fireflies_tpu_torch.entity import Curve, Mesh, Transformable  # noqa: E402
 from fireflies_tpu_torch.material import Material  # noqa: E402
 from fireflies_tpu_torch.scene import Scene  # noqa: E402
 
-__all__ = ["Scene", "Mesh", "Transformable", "Light", "Material", "__version__"]
+
+def load_scene(path):
+    """Load a YAML scene description; returns (Scene, bridge_kwargs)."""
+    from fireflies_tpu_torch.scene_io import load_scene as _load  # noqa: PLC0415
+
+    return _load(path)
+
+
+__all__ = [
+    "Scene",
+    "Mesh",
+    "Transformable",
+    "Curve",
+    "Light",
+    "Material",
+    "load_scene",
+    "sampling",
+    "utils",
+    "entity",
+    "emitter",
+    "material",
+    "graphics",
+    "projection",
+    "__version__",
+]

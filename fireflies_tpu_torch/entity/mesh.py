@@ -1,20 +1,24 @@
 """Mesh entity: vertex-level randomization (scale + animation).  Port of
-fireflies_tpu/entity/mesh.py without OBJ loading, procedural animation
-functions and shape models.
+fireflies_tpu/entity/mesh.py.
 
 Pose composition ``(T + centroid) @ R @ S @ base_world``; vertices are
-animated first, then transformed by the composed world.
+animated first, then transformed by the composed world.  Animation
+sources: stacked (F, V, 3) frames, separate for train and eval (given
+directly or read from a directory of OBJ frames), the frame picked by an
+AnimationSampler; or a function ``f(vertices, t)`` on tensors with t ~
+U(lo, hi).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from fireflies_tpu_torch import sampling
 from fireflies_tpu_torch.entity.transformable import Transformable
+from fireflies_tpu_torch.utils import io as ffio
 from fireflies_tpu_torch.utils import math as ffmath
 
 Tensor = torch.Tensor
@@ -34,6 +38,7 @@ class Mesh(Transformable):
         self._animated = False
         self._anim_data_train: Optional[np.ndarray] = None
         self._anim_data_eval: Optional[np.ndarray] = None
+        self._animation_func: Optional[Callable[[Tensor, Tensor], Tensor]] = None
         self._animation_sampler: Optional[sampling.Sampler] = None
 
     # -- scale spec ----------------------------------------------------------------
@@ -63,6 +68,15 @@ class Mesh(Transformable):
     def animated(self) -> bool:
         return self._animated
 
+    def add_animation_func(self, func, min_range, max_range) -> None:
+        """Procedural vertex animation: func(vertices (V, 3), t (1,)) ->
+        (V, 3) on tensors, with t ~ U(min_range, max_range) (in eval mode
+        the sampler's sweep)."""
+        self._animation_func = func
+        self._animation_sampler = sampling.UniformSampler.create(min_range, max_range)
+        self._animated = True
+        self._randomizable = True
+
     def add_animation(self, animation_data, eval_data=None) -> None:
         """Register stacked (F, V, 3) animation frames."""
         self._anim_data_train = np.asarray(animation_data, np.float32)
@@ -70,11 +84,30 @@ class Mesh(Transformable):
             np.asarray(eval_data, np.float32) if eval_data is not None
             else self._anim_data_train
         )
-        n_train = len(self._anim_data_train)
-        n_eval = len(self._anim_data_eval)
+        self._ensure_animation_sampler()
+
+    def add_train_animation_from_obj(self, path: str, max_frames: int | None = None) -> None:
+        """Train frames from a directory of OBJ files, sorted by name."""
+        self._anim_data_train = ffio.load_obj_sequence(path)[:max_frames]
+        self._ensure_animation_sampler()
+
+    def add_eval_animation_from_obj(self, path: str, max_frames: int | None = None) -> None:
+        """Eval frames from a directory of OBJ files, sorted by name."""
+        self._anim_data_eval = ffio.load_obj_sequence(path)[:max_frames]
+        self._ensure_animation_sampler()
+
+    def _ensure_animation_sampler(self) -> None:
+        n_train = 1 if self._anim_data_train is None else len(self._anim_data_train)
+        n_eval = 1 if self._anim_data_eval is None else len(self._anim_data_eval)
         self._animation_sampler = sampling.AnimationSampler.create(0, n_train, 0, n_eval)
         self._animated = True
         self._randomizable = True
+
+    def anim_data_train(self) -> Optional[np.ndarray]:
+        return self._anim_data_train
+
+    def set_anim_data_train(self, data) -> None:
+        self._anim_data_train = np.asarray(data, np.float32)
 
     # -- geometry access ----------------------------------------------------------
 
@@ -89,11 +122,17 @@ class Mesh(Transformable):
     def faces(self) -> Optional[np.ndarray]:
         return self._faces
 
+    def set_faces(self, faces) -> None:
+        self._faces = np.asarray(faces, np.int32).reshape(-1, 3)
+
     def uvs(self) -> Optional[np.ndarray]:
         return self._uvs
 
     def get_vertices(self) -> np.ndarray:
         return self._vertices
+
+    def set_vertices(self, vertices) -> None:
+        self._vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
 
     def num_vertices(self) -> int:
         return self._vertices.shape[0]
@@ -115,6 +154,10 @@ class Mesh(Transformable):
         if not self._animated:
             return torch.as_tensor(self._vertices, device=device)
         t = self._animation_sampler.sample(gen, step, train, device)
+        if self._animation_func is not None:
+            return self._animation_func(torch.as_tensor(self._vertices, device=device), t)
         data = self._anim_data_train if train else self._anim_data_eval
+        if data is None:
+            data = self._anim_data_eval if train else self._anim_data_train
         idx = min(max(int(t), 0), data.shape[0] - 1)
         return torch.as_tensor(data[idx], device=device)

@@ -1,11 +1,13 @@
 """Transformable: the randomizable-entity builder (port of
-fireflies_tpu/entity/transformable.py; `Curve` is not ported yet).
+fireflies_tpu/entity/transformable.py).
 
 A Transformable is a spec builder: per-axis rotation / translation
 intervals, parent links and float/vec3 attribute samplers.
 `sample_own_world(gen, step, train, device)` and `sample_attributes(...)`
 draw one variant; `Scene.compile()` chains them into its randomize
-function.  Pose composition: ``(T + centroid) @ R @ base_world``.
+function.  Pose composition: ``(T + centroid) @ R @ base_world``, parent
+first (``world = parent_world @ own``).  A `Curve` moves its children
+along a NURBS path.
 """
 
 from __future__ import annotations
@@ -46,9 +48,24 @@ class Transformable:
     def parent(self) -> Optional["Transformable"]:
         return self._parent
 
+    def child(self) -> Optional["Transformable"]:
+        return self._child
+
     def set_parent(self, parent: "Transformable") -> None:
         self._parent = parent
         parent._child = self
+
+    # The reference's name.
+    setParent = set_parent
+
+    def relative(self) -> bool:
+        return self._parent is not None
+
+    def randomizable(self) -> bool:
+        return self._randomizable
+
+    def set_randomizable(self, value: bool) -> None:
+        self._randomizable = value
 
     # -- pose spec -------------------------------------------------------------
 
@@ -57,6 +74,14 @@ class Transformable:
 
     def set_centroid(self, centroid) -> None:
         self._centroid = np.asarray(centroid, np.float32).reshape(3)
+
+    def set_rotation_sampler(self, sampler: sampling.Sampler) -> None:
+        self._randomizable = True
+        self._rotation_sampler = sampler
+
+    def set_translation_sampler(self, sampler: sampling.Sampler) -> None:
+        self._randomizable = True
+        self._translation_sampler = sampler
 
     def rotate_x(self, lo: float, hi: float) -> None:
         self._randomizable = True
@@ -70,6 +95,11 @@ class Transformable:
         self._randomizable = True
         self._rotation_sampler = self._rotation_sampler.set_index_interval(2, lo, hi)
 
+    def rotate(self, minimum, maximum) -> None:
+        """Euler-angle intervals of all three axes at once ((3,) each)."""
+        self._randomizable = True
+        self._rotation_sampler = self._rotation_sampler.set_sample_interval(minimum, maximum)
+
     def translate_x(self, lo: float, hi: float) -> None:
         self._randomizable = True
         self._translation_sampler = self._translation_sampler.set_index_interval(0, lo, hi)
@@ -81,6 +111,11 @@ class Transformable:
     def translate_z(self, lo: float, hi: float) -> None:
         self._randomizable = True
         self._translation_sampler = self._translation_sampler.set_index_interval(2, lo, hi)
+
+    def translate(self, minimum, maximum) -> None:
+        """Translation intervals of all three axes at once ((3,) each)."""
+        self._randomizable = True
+        self._translation_sampler = self._translation_sampler.set_sample_interval(minimum, maximum)
 
     # -- attribute spec ----------------------------------------------------------
 
@@ -137,3 +172,33 @@ class Transformable:
         if self._parent is None:
             return self._world
         return self._parent.non_randomized_world() @ self._world
+
+
+class Curve(Transformable):
+    """Moves its children along a NURBS path (`utils.nurbs.NURBSCurve`),
+    oriented to the tangent: in train mode at t ~ U(0, 1), in eval mode at
+    t = (step % n) * interp_delta with n = int(1 / interp_delta).  Its own
+    world is translation(curve(t)) @ align(-Z -> tangent(t)) @ base_world."""
+
+    def __init__(self, name: str, curve, interp_delta: float = 0.01):
+        super().__init__(name)
+        self._curve = curve
+        self._interp_delta = float(interp_delta)
+        self._randomizable = True
+
+    def curve(self):
+        return self._curve
+
+    def sample_own_world(self, gen, step, train: bool, device) -> Tensor:
+        if train:
+            t = torch.rand((), generator=gen, device=device)
+        else:
+            n_steps = max(int(1.0 / self._interp_delta), 1)
+            t = torch.tensor(float(int(step) % n_steps), dtype=torch.float32,
+                             device=device) * self._interp_delta
+        point = self._curve.evaluate(t)
+        tangent = self._curve.tangent(t)
+        forward = torch.tensor([0.0, 0.0, -1.0], device=device)
+        m = ffmath.to_mat4x4(ffmath.rotation_matrix_from_vectors(forward, tangent))
+        m[:3, 3] = point
+        return m @ torch.as_tensor(self._world, device=device)

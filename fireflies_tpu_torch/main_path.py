@@ -48,18 +48,27 @@ Two shapes take the rest of the renderer's shading (`BUILDERS`, through
 clearcoat, roughness and sheen of the mucosa, a grey spot intensity) with
 material maps, and `emitters`, `cornell_like` with a glass sphere, a thin
 translucent box, anisotropic and flat walls, an area light, a point light
-with an aperture and an envmap.
+with an aperture and an envmap.  Two more take the vocalfold scene from a
+file, as users load it (`BUILDERS` too): `xml`, the Mitsuba export
+tools/parity_scenes/vocalfold.xml through
+`utils.mitsuba_xml.scene_from_mitsuba_xml`, and `yaml`, a scene
+description written by `scene_io.save_scene_description` and read back by
+`scene_io.load_scene`, its fold animated from OBJ frames and its mucosa
+textured by a `NoiseTextureLerpSampler`.
 """
 
 from __future__ import annotations
+
+import tempfile
+from pathlib import Path
 
 import torch
 
 import numpy as np
 
-from fireflies_tpu_torch import sampling
+from fireflies_tpu_torch import sampling, scene_io
 from fireflies_tpu_torch.assets import procedural, scenes
-from fireflies_tpu_torch.entity import Mesh
+from fireflies_tpu_torch.entity import Mesh, Transformable
 from fireflies_tpu_torch.material import Material
 from fireflies_tpu_torch.optim import hybrid_pose_loss, image_l2, make_variant_loss
 from fireflies_tpu_torch.postprocessing import gaussian_blur2d
@@ -71,7 +80,9 @@ from fireflies_tpu_torch.render import (
     render_segmentation,
 )
 from fireflies_tpu_torch.render.soft import render_soft_silhouette
+from fireflies_tpu_torch.utils import io as ffio
 from fireflies_tpu_torch.utils import math as ffmath
+from fireflies_tpu_torch.utils.mitsuba_xml import scene_from_mitsuba_xml
 
 Tensor = torch.Tensor
 
@@ -401,4 +412,133 @@ def build_emitters(device="cuda", size: int = 512):
     return bridge, scene.compile(device=device), beams, cfg
 
 
-BUILDERS = {"materials": build_materials, "emitters": build_emitters}
+# The vocalfold scene of `scenes.vocalfold(resolution=24)` exported by the
+# JAX package's `tools/mitsuba_parity.py export`: two OBJ meshes (1152 +
+# 288 faces), a spot light and the camera.
+VOCALFOLD_XML = Path(__file__).resolve().parent.parent / "tools" / "parity_scenes" / "vocalfold.xml"
+
+
+def _vocalfold_projector() -> Transformable:
+    """`scenes.vocalfold`'s laser projector, beside the camera."""
+    proj = Transformable("Projector")
+    proj.set_world(ffmath.look_at_np((0.35, 0.0, 1.9), (0.0, 0.0, 0.0)))
+    return proj
+
+
+def shape_from_scene(scene, bridge_kwargs: dict, device="cuda", size: int = 512):
+    """(bridge, randomize, beams, cfg) of a loaded scene: its SceneBridge,
+    its randomize function on `device`, the (144, 3) uniform beams and
+    `bench_config(size)`."""
+    bridge = SceneBridge(scene, **bridge_kwargs)
+    beams = laser.generate_uniform_rays(0.0275, 12, 12, device=device)
+    return bridge, scene.compile(device=device), beams, bench_config(size=size)
+
+
+def xml_scene(path=VOCALFOLD_XML):
+    """(scene, bridge_kwargs) of the `xml` shape: the Mitsuba scene at
+    `path` (`scene_from_mitsuba_xml`: meshes mesh_0 (the fold) and mesh_1,
+    materials mat0 and mat1, the spot emit_0, the camera), then what a user
+    adds after loading it: `scenes.vocalfold`'s projector (fov 30, scale
+    20) and examples/vocalfold_scene.py's randomization (fold scale x and z
+    in [1, 1.5], rotation y in [-0.2, 0.2]; clearcoat, roughness and sheen
+    of mat0 each U(0, 1); the spot's intensity one U(5, 25) grey).  The
+    loader binds no material to the shapes (their `<ref>`s are not
+    followed), so every face takes mat0."""
+    scene, kw, _ = scene_from_mitsuba_xml(path)
+    scene.set_projector(_vocalfold_projector())
+    kw = dict(kw, projector_fov=PROJECTOR_FOV, projector_scale=20.0)
+    fold = scene.mesh("mesh_0")
+    fold.scale_x(1.0, 1.5)
+    fold.scale_z(1.0, 1.5)
+    fold.rotate_y(-0.2, 0.2)
+    for key in ("clearcoat", "roughness", "sheen"):
+        scene.material("mat0").add_float_key(key, 0.0, 1.0)
+    scene.light("emit_0").add_vec3_sampler(
+        "intensity.value", sampling.UniformScalarToVec3Sampler.create(5.0, 25.0))
+    return scene, kw
+
+
+def build_xml(device="cuda", size: int = 512):
+    """(bridge, randomize, beams, cfg) of the `xml` shape (`xml_scene`):
+    1440 faces, 512^2, spp 1, 2 bounces, the analytic projector."""
+    return shape_from_scene(*xml_scene(), device, size)
+
+
+YAML_RESOLUTION, YAML_FRAMES = 24, 4
+NOISE_TEXTURE = (256, 256)
+NOISE_COLORS = ((1.0, 0.0, 0.0), (0.9, 0.1, 0.0))  # a red family
+
+
+def yaml_description() -> dict:
+    """The `yaml` shape's scene description: the camera, the vocalfold
+    primitive (resolution 24) animated from the OBJ frames in frames/ and
+    randomized as examples/vocalfold_scene.py does, the larynx tube, the
+    two materials, the spot with a grey intensity U(5, 25) and the
+    projector (`scenes.vocalfold`'s placements)."""
+    return {
+        "camera": {"position": [0.0, 0.0, 1.9], "look_at": [0.0, 0.0, 0.0], "up": [0.0, 1.0, 0.0],
+                   "fov": 60.0},
+        "meshes": [
+            {"name": "mesh-Vocalfold", "primitive": "vocalfold", "resolution": YAML_RESOLUTION,
+             "material": "mat-Mucosa", "animation": {"obj_dir": "frames"},
+             "randomize": {"scale_x": [1.0, 1.5], "scale_z": [1.0, 1.5],
+                           "rotate_y": [-0.2, 0.2]}},
+            {"name": "mesh-Larynx", "primitive": "tube", "radius": 1.6, "length": 3.0,
+             "position": [0.0, 0.0, 2.0], "material": "mat-Tissue"},
+        ],
+        "materials": [
+            {"name": "mat-Mucosa", "base_color": [0.78, 0.35, 0.34], "roughness": 0.35,
+             "specular": 0.6, "randomize": {k: [0.0, 1.0]
+                                            for k in ("clearcoat", "roughness", "sheen")}},
+            {"name": "mat-Tissue", "base_color": [0.72, 0.3, 0.3], "roughness": 0.5},
+        ],
+        "lights": [
+            {"name": "emit-Spot", "kind": "spot", "position": [0.0, 0.0, 1.95],
+             "look_at": [0.0, 0.0, 0.0], "intensity": [12.0, 12.0, 12.0], "cutoff_angle": 40.0,
+             "randomize": {"intensity_scalar": [5.0, 25.0]}},
+        ],
+        "projector": {"position": [0.35, 0.0, 1.9], "look_at": [0.0, 0.0, 0.0],
+                      "fov": PROJECTOR_FOV, "scale": 20.0},
+        "background": [0.0, 0.0, 0.0],
+    }
+
+
+def write_yaml_scene(directory) -> Path:
+    """Write the `yaml` shape's files into `directory`: scene.yml
+    (`yaml_description`, by `scene_io.save_scene_description`) and its fold
+    animation, `procedural.vocalfold_animation_frames(4)` less the rest
+    mesh's centroid, as frames/frame_<i>.obj (`utils.io.save_obj`).
+    Returns the description's path."""
+    directory = Path(directory)
+    verts, faces, _ = procedural.make_vocalfold(resolution=YAML_RESOLUTION)
+    frames = procedural.vocalfold_animation_frames(YAML_FRAMES, resolution=YAML_RESOLUTION)
+    (directory / "frames").mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(frames - verts.mean(0)):
+        ffio.save_obj(directory / "frames" / f"frame_{i:03d}.obj", frame, faces)
+    path = directory / "scene.yml"
+    scene_io.save_scene_description(yaml_description(), path)
+    return path
+
+
+def yaml_scene(path):
+    """(scene, bridge_kwargs) of the description at `path`
+    (`scene_io.load_scene`), with a NoiseTextureLerpSampler (NOISE_TEXTURE,
+    NOISE_COLORS) on the mucosa's "brdf_0.base_color.data"."""
+    scene, kw = scene_io.load_scene(path)
+    scene.material("mat-Mucosa").add_vec3_sampler(
+        "brdf_0.base_color.data",
+        sampling.NoiseTextureLerpSampler.create(*NOISE_COLORS, texture_shape=NOISE_TEXTURE))
+    return scene, kw
+
+
+def build_yaml(device="cuda", size: int = 512):
+    """(bridge, randomize, beams, cfg) of the `yaml` shape: the files of
+    `write_yaml_scene` in a temporary directory, loaded by `yaml_scene`;
+    1536 faces (the tube primitive has 8 rings), 512^2, spp 1, 2 bounces,
+    the analytic projector, the noise texture on the face-table route."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return shape_from_scene(*yaml_scene(write_yaml_scene(tmp)), device, size)
+
+
+BUILDERS = {"materials": build_materials, "emitters": build_emitters, "xml": build_xml,
+            "yaml": build_yaml}

@@ -6,12 +6,14 @@ the bridge assembles into the material table, and optional maps: a
 base-colour texture (H, W, 3), emitted by `Scene.compile()` as
 "<mat>.base_color.data"; a roughness map (H, W) in [0, 1]; a tangent-space
 normal map (H, W, 3), RGB in [0, 1] with n = 2 rgb - 1 (the mesh needs
-uvs).
+uvs).  Its spatial operations (rotate, translate, set_parent, set_world)
+warn, since they have no effect on shading.
 """
 
 from __future__ import annotations
 
 from fireflies_tpu_torch.entity.transformable import Transformable
+from fireflies_tpu_torch.utils import warnings as ffwarn
 
 PRINCIPLED_DEFAULTS: dict[str, object] = {
     "base_color": (0.8, 0.8, 0.8),
@@ -68,6 +70,46 @@ class Material(Transformable):
 
     def normal_texture(self):
         return self._normal_texture
+
+    @ffwarn.rotation_assignment_warning
+    def rotate_x(self, *a):
+        return super().rotate_x(*a)
+
+    @ffwarn.rotation_assignment_warning
+    def rotate_y(self, *a):
+        return super().rotate_y(*a)
+
+    @ffwarn.rotation_assignment_warning
+    def rotate_z(self, *a):
+        return super().rotate_z(*a)
+
+    @ffwarn.rotation_assignment_warning
+    def rotate(self, *a):
+        return super().rotate(*a)
+
+    @ffwarn.translation_assignment_warning
+    def translate_x(self, *a):
+        return super().translate_x(*a)
+
+    @ffwarn.translation_assignment_warning
+    def translate_y(self, *a):
+        return super().translate_y(*a)
+
+    @ffwarn.translation_assignment_warning
+    def translate_z(self, *a):
+        return super().translate_z(*a)
+
+    @ffwarn.translation_assignment_warning
+    def translate(self, *a):
+        return super().translate(*a)
+
+    @ffwarn.relative_assignment_warning
+    def set_parent(self, *a):
+        return super().set_parent(*a)
+
+    @ffwarn.world_assignment_warning
+    def set_world(self, *a):
+        return super().set_world(*a)
 
 
 __all__ = ["Material", "PRINCIPLED_DEFAULTS"]

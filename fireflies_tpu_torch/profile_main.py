@@ -11,8 +11,11 @@ with tile culling off `main_unculled` (B6 and B3) and `reference_unculled`
 (B7s and B7g), on the face-table attribute route `geometry` (main with
 smooth normals) and `reference_geometry` (bench.py's static_geom=0 row),
 and the shading shapes of `main_path.BUILDERS`: `materials` (the farm
-scene with material maps; B1 and B3) and `emitters` (9046 faces, spp 4,
-3 bounces, no projector, so no pattern step; B2 and B4).
+scene with material maps; B1 and B3), `emitters` (9046 faces, spp 4,
+3 bounces, no projector, so no pattern step; B2 and B4), and the scene
+files `xml` (vocalfold.xml, 1440 faces) and `yaml` (a scene description
+with OBJ-frame animation and a Perlin texture, 1536 faces; both B1 and
+B3).
 `--analytic 0` takes the texture route (the beams rasterized into a
 256x256 projector texture) in place of the analytic beam splat;
 `--static-geometry` overrides the shape's (0: the face-table route).

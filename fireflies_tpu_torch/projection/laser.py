@@ -19,7 +19,6 @@ needed.
 
 from __future__ import annotations
 
-import json
 import math
 from typing import Optional
 
@@ -36,6 +35,7 @@ from fireflies_tpu_torch.projection.camera import (
     ndc_to_directions,
     points_to_ndc,
 )
+from fireflies_tpu_torch.utils import io as ffio
 from fireflies_tpu_torch.utils import math as ffmath
 
 Tensor = torch.Tensor
@@ -210,33 +210,6 @@ def _float_text(x: float) -> str:
     return text
 
 
-def _parse_laser_file(text: str) -> dict:
-    """The fields of a saved laser: JSON, or the block YAML that
-    `yaml.safe_dump` writes for this fixed schema (`rays` as a list of
-    three-float lists, `fov`, `near_clip`, `far_clip`)."""
-    if text.lstrip().startswith("{"):
-        return json.loads(text)
-    data: dict = {}
-    rays: list = []
-    for line in text.splitlines():
-        if not line.strip():
-            continue
-        if line.startswith("- - "):  # a new ray's first component
-            rays.append([float(line[4:])])
-        elif line.startswith("  - "):  # the next component of the ray
-            rays[-1].append(float(line[4:]))
-        else:
-            key, _, value = line.partition(":")
-            value = value.strip()
-            if key == "rays":
-                if value not in ("", "[]"):
-                    raise ValueError(f"unreadable rays entry {line!r}")
-            else:
-                data[key] = float(value)
-    data["rays"] = rays
-    return data
-
-
 class Laser(Camera):
     """A beam pattern (K, 3) in the projector's local frame, on the
     projector's Transformable, with the camera's intrinsics; the pattern's
@@ -332,8 +305,7 @@ class Laser(Camera):
     def load(cls, filepath: str, transformable: Transformable, device="cuda") -> "Laser":
         """A laser saved by either package (JSON or the JAX package's YAML)
         on `transformable`, its rays on `device`."""
-        with open(filepath) as f:
-            data = _parse_laser_file(f.read())
+        data = ffio.read_config_yaml(filepath)
         rays = torch.tensor(data["rays"], dtype=torch.float32, device=device).reshape(-1, 3)
         return cls(transformable, rays, fov=float(data["fov"]),
                    near_clip=float(data["near_clip"]), far_clip=float(data["far_clip"]))
