@@ -149,6 +149,27 @@ Phases (each raises on failure, so any failure exits non-zero):
      pattern's epipolar lines at 256x256 against the CPU (1e-5 of the
      max); `optimize_pattern_through_render` from the SMARTY beams as in
      optimize (counted: B1 and B3, no other), s/step and peak memory;
+  films (`films_phase`): odd_film, the main shape at 500x500 (the
+     permutation route of `rays.camera_rays_tiled`: partial 128x16 blocks,
+     the last ray tile padded): every B1 and B3 launch replayed (plain on
+     2 variants, 0 rays off, each replay over the padded ray count), CUDA
+     against the CPU plain path at 200x120 with the beam gradient, phase 5
+     (B1 5 and B3 1, no other), phase 6; bands, the 512^2 and 500^2 films
+     in 4 bands (`render_rgb(film_y0=, film_full_height=)`) at pixel
+     centres and one bounce against the whole film (each pixel within 1e-6
+     relative), counted (B1); quadrature, hello_world and cornell_like at
+     100^2: the path tracer at one vertex within 1e-5 of the quadrature
+     witness (`render/quadrature.py`), the mean of 64 path-tracer variants
+     at 2 bounces against the quadrature at n_mu 16, n_phi 32 within the
+     noise, counted (B1 and B3); parallel, `parallel/` at world size 1 over
+     NCCL (only the group's start and the farm's broadcast reach NCCL at
+     one rank): `psum_grad_step` over `main_path.variant_loss` against one
+     process, `render_tile_parallel` equal to `render_rgb`,
+     `all_gather_frames` the identity, a counted
+     `datagen.generate_dataset_parallel` of 8 frames (B1 and B3); blocker, the
+     blocker scene's warped-area gradient and its finite difference over
+     8192 variants, each with its standard error: within two combined
+     standard errors of each other, the gradient above four of its own;
   7. probe: X2 (`perf_probe.vpu_roof`, its counter set to 0 just before and
      read just after) bit for bit against its plain version, its time,
      bound and rate of unfused FP32 operations; the kernel roof (B3 on a
@@ -171,11 +192,12 @@ Phases (each raises on failure, so any failure exits non-zero):
 Then one JSON line with the kernels (each with its fused operations per
 tested pair, `ops_per_pair`, its counted launches on every path that runs
 it, `launches_by_path` (`estimation` for SMARTY's depth maps,
-`estimation_optimize` for the optimizer from its pattern), and for the
+`estimation_optimize` for the optimizer from its pattern, `odd_film`,
+`bands`, `quadrature` and `parallel` for the films phase), and for the
 nine intersection kernels
 `least_pairs` and `least_bound_ms`, and for each path beyond its own that
 replays it (geometry, reference_geometry, materials, emitters, reparam,
-estimation, xml, yaml) its cases,
+estimation, xml, yaml, odd_film) its cases,
 mismatches and times (B4's any-hit times on emitters); for X1 beside them its tensor-core
 multiply-adds and reciprocals per pair and the bounds with d' on the FP32
 pipe; for X2 its
@@ -387,7 +409,8 @@ def kernel_phase(path: str, drive, per_mode: dict | None, plain_variants: int | 
             out_k = kernel_fn(**rec)
             res = compare(case, [x[:nv] for x in out_k], plain_fn(**rec_p), rec["any_hit"])
             res.update(kernel=name, path=path, any_hit=rec["any_hit"], replayed=replayed,
-                       plain_variants=nv, variants=rec["tmax_tiles"].shape[0])
+                       plain_variants=nv, variants=rec["tmax_tiles"].shape[0],
+                       rays=rec["tmax_tiles"][0].numel())
             res["ms"] = cuda_ms(lambda rec=rec: kernel_fn(**rec), 20)
             res["plain_ms"] = cuda_ms(lambda rec=rec_p: plain_fn(**rec), 2) if time_plain else None
             tested = torch.empty_like(rec["tmax_tiles"], dtype=torch.int32)
@@ -911,6 +934,318 @@ def reparam_phase(dev, seeds) -> tuple[dict, dict]:
     if (tuple(grad.shape) != (3,) or not torch.isfinite(grad).all() or grad.abs().max() == 0
             or not torch.isfinite(loss)):
         raise AssertionError("reparam: the translation gradient is not a finite nonzero (3,)")
+    return res, counts
+
+
+FILM_ODD = 500  # the odd film: divides into neither 128 nor 16
+FILM_CHECK = (200, 120)  # odd_film's CUDA-against-CPU film
+FILM_BANDS = 4
+QUAD_SIZE, QUAD_VARIANTS, QUAD_NODES = 100, 64, (16, 32)
+PARALLEL_FRAMES = 8
+BLOCKER_VARIANTS, BLOCKER_BATCH = 8192, 2048
+
+
+def _image_mean(img, aux):
+    return img.mean(dim=(1, 2, 3))
+
+
+def odd_film_phase(dev, seeds) -> tuple[dict, dict]:
+    """The main shape (vocalfold resolution 24, 1440 faces, 16 variants, 2
+    bounces, spp 1, the analytic projector) at a FILM_ODD^2 film, which
+    takes the permutation route of `rays.camera_rays_tiled`: its 128x16
+    blocks end in partial blocks, so the 2048-ray kernel tiles straddle
+    them, and the last ray tile is padded.  Every B1 and B3 launch of one
+    forward batch replayed against the plain versions (plain on 2
+    variants, 0 rays off, each replay over the padded ray count); CUDA
+    against the CPU plain path at FILM_CHECK with the beam gradient
+    (`reference_phase`); a counted forward (B1 5, B3 1, no other) with
+    renders/s and peak memory; a pattern step.  Returns (the replays, the
+    forward's launches)."""
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.render.cuda.intersect_kernel import RAY_TILE  # noqa: PLC0415
+
+    bridge, randomize, beams, cfg = main_path.build_shape("main", dev, FILM_ODD)
+    n_pix = FILM_ODD * FILM_ODD
+    padded = -(-n_pix // RAY_TILE) * RAY_TILE
+    log(f"[odd_film/kernels] {BATCH} variants x {FILM_ODD}x{FILM_ODD} rays ({n_pix}, padded to "
+        f"{padded}), {len(bridge._faces)} faces, spp {cfg.spp}, {cfg.max_bounces} bounces")
+    res = kernel_phase("odd_film", lambda: main_path.render_batch(bridge, randomize, beams, seeds,
+                                                                  cfg), None, 2)
+    kernels = sorted({r["kernel"] for r in res.values()})
+    off = sum(r["mismatched"] for r in res.values())
+    short = [case for case, r in res.items() if r["rays"] != padded]
+    if kernels != sorted([B1, B3]) or off or short:
+        raise AssertionError(f"odd_film: replays of {kernels}, {off} rays off, {short} not over "
+                             f"the padded {padded} rays")
+    log(f"[odd_film/kernels] {len(res)} replays, 0 rays off, each over {padded} rays "
+        f"({padded - n_pix} of the last tile padded)")
+    log("[odd_film/reference]")
+    reference_phase("odd_film", bridge, randomize, beams, dev,
+                    cfg.replace(width=FILM_CHECK[0], height=FILM_CHECK[1]), grad=("beams",))
+    counts = forward_phase("odd_film", bridge, randomize, beams, seeds, cfg, (B1, B3))
+    if counts[B1] != 5 or counts[B3] != 1:
+        raise AssertionError(f"odd_film: a forward launched {counts}, not B1 5 and B3 1")
+    pattern_phase("odd_film", bridge, randomize, beams, seeds, cfg, dev)
+    return res, counts
+
+
+def bands_phase(dev, seeds) -> dict:
+    """The main shape's film rendered in FILM_BANDS horizontal bands
+    (`render_rgb(film_y0=, film_full_height=)`) against the whole film, at
+    pixel centres and one bounce, where nothing is drawn: the 512^2 film in
+    bands of 128 rows (the arithmetic route) and the FILM_ODD^2 film in
+    bands of 125 (the permutation route; its bands' ray tiles group other
+    pixels than the whole film's).  Each pixel within 1e-6 relative (a
+    black pixel exactly); counted (B1 only: one bounce).  Returns the
+    launches."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.render import render_rgb  # noqa: PLC0415
+
+    bridge, randomize, beams = main_path.build(dev)
+    out = {}
+
+    def drive():
+        with torch.no_grad():
+            scene = main_path.scene_batch(bridge, randomize, beams,
+                                          main_path.generators(seeds, dev))
+            for size in (SIZE, FILM_ODD):
+                cfg = main_path.bench_config(size=size, bounces=1)
+                band = size // FILM_BANDS
+                whole = render_rgb(scene, None, cfg)
+                parts = torch.cat([render_rgb(scene, None, cfg.replace(height=band), film_y0=y0,
+                                              film_full_height=size)
+                                   for y0 in range(0, size, band)], dim=1)
+                out[size] = whole, parts
+
+    counts = count_launches(drive)
+    for size, (whole, parts) in out.items():
+        diff = (parts - whole).abs()
+        bad = int((diff > 1e-6 * whole.abs()).any(-1).sum())
+        same = float((parts == whole).all(-1).float().mean())
+        rel = float((diff / whole.abs().clamp(min=1e-30)).max())
+        log(f"[bands] {size}x{size} in {FILM_BANDS} bands of {size // FILM_BANDS} rows, "
+            f"{BATCH} variants: {same:.6f} of pixels bit for bit, max relative difference "
+            f"{rel:.3g}, {bad} pixels beyond 1e-6; image mean {whole.mean().item():.6g}")
+        if bad or not torch.isfinite(whole).all() or whole.max() <= 0:
+            raise AssertionError(f"bands: {bad} pixels of the {size}^2 bands differ from the film")
+    log(f"[bands] launches {counts}")
+    check_launches("bands", counts, (B1,))
+    return counts
+
+
+def quadrature_phase(dev) -> dict:
+    """The quadrature witness (render/quadrature.py, brute force, no
+    kernel) against the path tracer on the card, at QUAD_SIZE^2 with
+    row-major `camera_rays` (primary rays on B1 from the camera, shadow
+    rays on B1, bounces on B3): hello_world without rotation and
+    cornell_like, each randomized once on the card; at one vertex within
+    1e-5 absolute per pixel (both compute the same integral, nothing
+    drawn); at 2 bounces on cornell_like the mean of QUAD_VARIANTS
+    path-tracer variants against the quadrature at QUAD_NODES (n_mu,
+    n_phi) within the noise, as tests/test_transport_quadrature.py holds
+    it: the mean images within 4 standard errors of the film's mean plus
+    2e-3, the per-pixel RMSE within 1.6 times the mean per-pixel standard
+    error plus 2e-3.  Counted (B1 and B3).  Returns the launches."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+    from fireflies_tpu_torch.assets import scenes  # noqa: PLC0415
+    from fireflies_tpu_torch.render import RenderConfig, SceneBridge  # noqa: PLC0415
+    from fireflies_tpu_torch.render.pathtracer import trace_rays  # noqa: PLC0415
+    from fireflies_tpu_torch.render.quadrature import radiance_quadrature  # noqa: PLC0415
+    from fireflies_tpu_torch.render.rays import camera_rays  # noqa: PLC0415
+
+    size = QUAD_SIZE
+    failed = []
+
+    def drive():
+        for name, build in (("hello_world", lambda: scenes.hello_world(randomize_rotation=False)),
+                            ("cornell_like", scenes.cornell_like)):
+            scene, kw = build()
+            bridge = SceneBridge(scene, **kw)
+            params = scene.compile(device=dev)(torch.Generator(device=dev).manual_seed(7), 0)
+            rs = bridge.assemble([params])
+            o, d = camera_rays(rs.camera, size, size)
+            cam = rs.camera.to_world[:, :3, 3]
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                pt = trace_rays(rs, o, d, None, RenderConfig(width=size, height=size,
+                                                             max_bounces=1), primary_origin=cam)
+                q = radiance_quadrature(rs, o, d, max_bounces=1)
+            torch.cuda.synchronize()
+            err = float((pt - q).abs().max())
+            log(f"[quadrature/{name}] {size}x{size}, {len(bridge._faces)} faces, one vertex: "
+                f"max |path tracer - quadrature| {err:.3g} (image max {q.max().item():.4g}); "
+                f"{time.perf_counter() - t0:.2f} s")
+            if err > 1e-5 or not q.max() > 0:
+                failed.append(f"{name} at one vertex")
+            if name != "cornell_like":
+                continue
+            t0 = time.perf_counter()
+            n_mu, n_phi = QUAD_NODES
+            with torch.no_grad():
+                rs_k = bridge.assemble([params] * QUAD_VARIANTS)
+                pts = trace_rays(rs_k, o.expand(QUAD_VARIANTS, -1, -1),
+                                 d.expand(QUAD_VARIANTS, -1, -1),
+                                 main_path.generators(range(QUAD_VARIANTS), dev),
+                                 RenderConfig(width=size, height=size, max_bounces=2),
+                                 primary_origin=cam.expand(QUAD_VARIANTS, -1))
+                torch.cuda.synchronize()
+                pt_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                q2 = radiance_quadrature(rs, o, d, max_bounces=2, n_mu=n_mu, n_phi=n_phi)[0]
+                torch.cuda.synchronize()
+                q_s = time.perf_counter() - t0
+            pt_mean = pts.mean(0)
+            mean_sem = float((pts.std(0) / QUAD_VARIANTS ** 0.5).mean())
+            rmse = float(((pt_mean - q2) ** 2).mean().sqrt())
+            d_mean = abs(float(pt_mean.mean() - q2.mean()))
+            log(f"[quadrature/{name}] 2 bounces: the mean of {QUAD_VARIANTS} path-tracer "
+                f"variants ({pt_s:.2f} s) against the quadrature at n_mu {n_mu}, n_phi {n_phi} "
+                f"({q_s:.2f} s): image means {pt_mean.mean().item():.6g} and "
+                f"{q2.mean().item():.6g}; per-pixel RMSE {rmse:.4g} against the mean per-pixel "
+                f"standard error {mean_sem:.4g} (ratio {rmse / mean_sem:.3f})")
+            if (d_mean >= 4 * mean_sem / q2.numel() ** 0.5 + 2e-3
+                    or rmse >= 1.6 * mean_sem + 2e-3 or not torch.isfinite(pts).all()):
+                failed.append(f"{name} at 2 bounces")
+
+    counts = count_launches(drive)
+    log(f"[quadrature] launches {counts}")
+    if failed:
+        raise AssertionError(f"quadrature: the path tracer misses the witness: {failed}")
+    check_launches("quadrature", counts, (B1, B3))
+    return counts
+
+
+def parallel_phase(dev, seeds) -> dict:
+    """`parallel/` at world size 1 over NCCL (the process group from a
+    FileStore in a temporary directory), on the main shape at 512^2:
+    `psum_grad_step` over `main_path.variant_loss` (the mean image, 16
+    variants from `shard_keys`) against the one-process loss and beam
+    gradient of the same generators (1e-6 and 1e-5 relative);
+    `render_tile_parallel` (one band) equal to `render_rgb` with the same
+    generators; `all_gather_frames` the identity; then a counted
+    `datagen.generate_dataset_parallel` of PARALLEL_FRAMES accepted frames
+    (`main_path.datagen_batch`, 8 a dispatch) written to a temporary
+    directory (B1 and B3).  At world size 1 the gathers and means return
+    before any collective, so only the group's start and the farm's
+    broadcast reach NCCL; the 2-rank gloo tests exercise the rest.  One
+    card shows no scaling.  Returns the counted run's launches."""
+    import os  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    import torch  # noqa: PLC0415
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from fireflies_tpu_torch import datagen, main_path, parallel  # noqa: PLC0415
+    from fireflies_tpu_torch.render import render_rgb  # noqa: PLC0415
+    from fireflies_tpu_torch.utils.seeds import step_seeds  # noqa: PLC0415
+
+    bridge, randomize, beams, cfg = main_path.build_shape("main", dev, SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parallel.init_distributed(0, 1, dev, store_path=os.path.join(tmp, "store"))
+        try:
+            mesh = parallel.make_mesh(1, device=dev)
+            log(f"[parallel] backend {dist.get_backend()}, world size {dist.get_world_size()}, "
+                f"mesh {mesh.shape} on {mesh.device}; {time.perf_counter() - t0:.2f} s")
+            loss_fn = main_path.variant_loss(bridge, randomize, cfg, _image_mean)
+            step = parallel.psum_grad_step(lambda rays, g: loss_fn(rays, g, 0), mesh)
+            loss, grad = step(beams, parallel.shard_keys(mesh, 0, BATCH))
+            leaf = beams.detach().requires_grad_(True)
+            ref = loss_fn(leaf, main_path.generators(step_seeds(0, 0, BATCH), dev), 0).mean()
+            ref.backward()
+            loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+            g_rel = float((grad - leaf.grad).norm() / leaf.grad.norm())
+            log(f"[parallel/psum_grad_step] {BATCH} variants: loss {loss.item():.8g} against "
+                f"{ref.item():.8g} ({loss_rel:.3g} relative), beam gradient {g_rel:.3g} "
+                f"relative L2")
+            tiles = parallel.make_mesh(axis_name=parallel.TILE_AXIS, device=dev)
+            with torch.no_grad():
+                scene = main_path.scene_batch(bridge, randomize, beams,
+                                              main_path.generators(seeds, dev))
+                gens = [s + 100 for s in seeds]
+                img_t = parallel.render_tile_parallel(scene, main_path.generators(gens, dev),
+                                                      cfg, tiles)
+                img = render_rgb(scene, main_path.generators(gens, dev), cfg)
+                frames = parallel.all_gather_frames(mesh, img)
+            same_t, same_f = torch.equal(img_t, img), torch.equal(frames, img)
+            log(f"[parallel/render_tile_parallel] {tuple(img.shape)}: equal to render_rgb "
+                f"{same_t}; all_gather_frames the identity {same_f}")
+            if not (loss_rel <= 1e-6 and g_rel <= 1e-5 and leaf.grad.abs().max() > 0
+                    and same_t and same_f):
+                raise AssertionError("parallel: world size 1 differs from one process")
+            fn = main_path.datagen_batch(bridge, randomize, beams, cfg)
+            out = {}
+            t0 = time.perf_counter()
+            counts = count_launches(lambda: out.update(n=datagen.generate_dataset_parallel(
+                fn, PARALLEL_FRAMES, os.path.join(tmp, "farm"), 0, mesh, per_device=8)))
+            farm_s = time.perf_counter() - t0
+            written = len(os.listdir(os.path.join(tmp, "farm", "images")))
+            log(f"[parallel/generate_dataset_parallel] {out['n']} frames ({written} PNG images) "
+                f"in {farm_s:.3f} s; launches {counts}")
+            if out["n"] != PARALLEL_FRAMES or written != PARALLEL_FRAMES:
+                raise AssertionError("parallel: generate_dataset_parallel wrote the wrong count")
+            check_launches("parallel", counts, (B1, B3))
+        finally:
+            dist.destroy_process_group()
+    return counts
+
+
+def blocker_phase(dev) -> None:
+    """The warped-area gradient on the scene that needs it: the blocker
+    scene (`main_path.blocker_scene`, tests/test_mb3_grad_nan.py's, 8x8,
+    spp 2, max_bounces 3, reparam with reparam_indirect over 2 bounces):
+    d(mean red)/d(dx) at dx = 1 from the warped render, and the central
+    difference of the plain render at 1 +- 0.25 with the same generators,
+    over BLOCKER_VARIANTS variants in batches of BLOCKER_BATCH
+    (`main_path.blocker_gradient_samples`), each with its standard error;
+    printed beside the reference's note (0.046 +- 0.004).  Fails on a
+    non-finite sample, when the two means differ by more than twice their
+    combined standard error, or when the gradient is not above four of its
+    standard errors (without the warped bounces it is exactly 0)."""
+    import numpy as np  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    grads, fds = [], []
+    for k in range(BLOCKER_VARIANTS // BLOCKER_BATCH):
+        g, f = main_path.blocker_gradient_samples(BLOCKER_BATCH, seed0=1000 + k * BLOCKER_BATCH,
+                                                  device=dev)
+        grads.append(g)
+        fds.append(f)
+    g, f = np.concatenate(grads), np.concatenate(fds)
+    n = len(g)
+    se_g, se_f = g.std(ddof=1) / n ** 0.5, f.std(ddof=1) / n ** 0.5
+    z = (g.mean() - f.mean()) / math.hypot(se_g, se_f)
+    log(f"[blocker] {n} variants: warped-area gradient {g.mean():.6g} +- {se_g:.3g}, "
+        f"finite difference {f.mean():.6g} +- {se_f:.3g} (difference {z:+.2f} combined standard "
+        f"errors; the reference's note: 0.046 +- 0.004); {time.perf_counter() - t0:.1f} s")
+    if not (np.isfinite(g).all() and np.isfinite(f).all()):
+        raise AssertionError("blocker: a non-finite gradient sample")
+    if abs(z) > 2 or g.mean() <= 4 * se_g:
+        raise AssertionError(f"blocker: the warped-area gradient {g.mean():.6g} +- {se_g:.3g} "
+                             f"against the finite difference {f.mean():.6g} +- {se_f:.3g}")
+
+
+def films_phase(dev, seeds) -> tuple[dict, dict]:
+    """odd_film, bands, quadrature, parallel and blocker, each timed.  Returns
+    (odd_film's replays, the launches of each counted path)."""
+    counts = {}
+    t0 = time.perf_counter()
+    res, counts["odd_film"] = odd_film_phase(dev, seeds)
+    log(f"[odd_film] {time.perf_counter() - t0:.1f} s")
+    for tag, phase in (("bands", bands_phase), ("quadrature", quadrature_phase),
+                       ("parallel", parallel_phase)):
+        t0 = time.perf_counter()
+        counts[tag] = phase(dev, seeds) if tag != "quadrature" else phase(dev)
+        log(f"[{tag}] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    blocker_phase(dev)
+    log(f"[blocker] {time.perf_counter() - t0:.1f} s")
     return res, counts
 
 
@@ -1721,6 +2056,12 @@ def main() -> int:
     kres.update(res)
     log(f"[estimation] {time.perf_counter() - t_est:.1f} s")
 
+    t_films = time.perf_counter()
+    res, counts = films_phase(dev, seeds)
+    kres.update(res)
+    path_launches.update(counts)
+    log(f"[films] {time.perf_counter() - t_films:.1f} s")
+
     t_mxu = time.perf_counter()
     x1 = mxu_phase(dev)
     log(f"[mxu] {time.perf_counter() - t_mxu:.1f} s")
@@ -1764,7 +2105,7 @@ def main() -> int:
         # emitted attributes, B1 and B3 with smooth normals; the shading
         # paths' (B4's per-ray-origin any-hit on emitters).
         for path in ("geometry", "reference_geometry", "materials", "emitters", "reparam",
-                     "estimation", "xml", "yaml"):
+                     "estimation", "xml", "yaml", "odd_film"):
             rows = [r for r in kres.values() if r["kernel"] == name and r["path"] == path]
             if rows:
                 entry[path] = {"cases": len(rows),

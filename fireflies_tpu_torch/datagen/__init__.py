@@ -1,13 +1,13 @@
 """Dataset generation: the reference's production loop, batched (port of
-fireflies_tpu/datagen, without `generate_dataset_parallel`, which needs
-the device mesh of `parallel/`).
+fireflies_tpu/datagen).
 
 One call of `render_batch_fn` randomizes, renders, segments and
 post-processes a batch of candidate frames on the device; the rejection
 filter (an empty segmentation, too many connected components) runs on the
 host over the batch, and the accepted frames are written as PNG files.
 Resume is by frame count: running again on the same out_dir continues after
-the last saved index.
+the last saved index.  `generate_dataset_parallel` spreads each dispatch
+over the ranks of a `parallel` mesh; rank 0 gathers, filters and writes.
 """
 
 from __future__ import annotations
@@ -95,12 +95,22 @@ def generate_dataset(render_batch_fn: Callable[[list, list], tuple], n_frames: i
     Resumes from the frames in out_dir.  Returns the number of frames now
     present.
     """
-    out = Path(out_dir)
-    (out / "images").mkdir(parents=True, exist_ok=True)
-    (out / "segmentations").mkdir(parents=True, exist_ok=True)
+    return _farm(render_batch_fn, n_frames, Path(out_dir), seed, batch, rejection,
+                 max_dispatches, writer=True, agree=lambda count: count)
+
+
+def _farm(render_batch_fn, n_frames: int, out: Path, seed: int, batch: int,
+          rejection: RejectionConfig | None, max_dispatches: Optional[int], writer: bool,
+          agree: Callable[[int], int]) -> int:
+    """generate_dataset's loop.  Only the `writer` reads out_dir, filters
+    and writes; `agree(count)` gives every caller the writer's frame count,
+    at the start and after each dispatch."""
+    if writer:
+        (out / "images").mkdir(parents=True, exist_ok=True)
+        (out / "segmentations").mkdir(parents=True, exist_ok=True)
     keep = default_frame_filter(rejection or RejectionConfig())
 
-    count = len(list((out / "images").glob("*.png")))
+    count = agree(len(list((out / "images").glob("*.png"))) if writer else 0)
     step_base = count
     dispatch = 0
     while count < n_frames:
@@ -108,18 +118,56 @@ def generate_dataset(render_batch_fn: Callable[[list, list], tuple], n_frames: i
             break
         steps = list(range(step_base + dispatch * batch, step_base + (dispatch + 1) * batch))
         images, segs = render_batch_fn([step_seeds(seed, s, 1)[0] for s in steps], steps)
-        images, segs = _host(images), _host(segs)
-        for i in range(batch):
-            if count >= n_frames:
-                break
-            if not keep(segs[i]):
-                continue
-            write_png(str(out / "images" / f"{count:05d}.png"), images[i])
-            seg_vis = (segs[i] > 0).astype(np.uint8) * 255
-            write_png(str(out / "segmentations" / f"{count:05d}.png"), seg_vis)
-            count += 1
+        if writer:
+            images, segs = _host(images), _host(segs)
+            for i in range(batch):
+                if count >= n_frames:
+                    break
+                if not keep(segs[i]):
+                    continue
+                write_png(str(out / "images" / f"{count:05d}.png"), images[i])
+                seg_vis = (segs[i] > 0).astype(np.uint8) * 255
+                write_png(str(out / "segmentations" / f"{count:05d}.png"), seg_vis)
+                count += 1
+        count = agree(count)
         dispatch += 1
     return count
+
+
+def generate_dataset_parallel(render_batch_fn: Callable[[list, list], tuple], n_frames: int,
+                              out_dir: str | os.PathLike, seed: int, mesh,
+                              per_device: int = 4, rejection: RejectionConfig | None = None,
+                              max_dispatches: Optional[int] = None) -> int:
+    """generate_dataset spread over a `parallel` mesh: every rank calls it
+    alike.  Each dispatch holds mesh.size * per_device frames; the rank at
+    index r of the mesh renders frames r * per_device .. (r + 1) *
+    per_device - 1 through render_batch_fn(seeds, steps), the ranks gather
+    the batch (`parallel.all_gather_frames`), and rank 0 filters it and
+    writes the PNG files exactly as generate_dataset would, then sends its
+    frame count to the others.  The same frames as generate_dataset with
+    batch = mesh.size * per_device.  Returns the frame count on every
+    rank."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from fireflies_tpu_torch import parallel  # noqa: PLC0415
+
+    axis = mesh.axis_names[0]
+    if len(mesh.axis_names) != 1:
+        raise ValueError("generate_dataset_parallel takes a 1-D mesh")
+    lo = mesh.coords[axis] * per_device
+
+    def batched(seeds, steps):
+        images, segs = render_batch_fn(seeds[lo:lo + per_device], steps[lo:lo + per_device])
+        return (parallel.all_gather_frames(mesh, images.to(mesh.device), axis),
+                parallel.all_gather_frames(mesh, segs.to(mesh.device), axis))
+
+    def agree(count: int) -> int:
+        t = torch.tensor([count], dtype=torch.int64, device=mesh.device)
+        dist.broadcast(t, src=0)
+        return int(t.item())
+
+    return _farm(batched, n_frames, Path(out_dir), seed, mesh.size * per_device,
+                 rejection, max_dispatches, writer=dist.get_rank() == 0, agree=agree)
 
 
 def spp_buckets(gen: torch.Generator, buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)) -> int:

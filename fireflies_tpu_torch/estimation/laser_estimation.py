@@ -194,7 +194,7 @@ def initialize_laser(scene, bridge, config: LaserConfig, mode: str = "GRID",
         variants (default: seeded 0).
       projector_fov: the laser's fov in degrees.
       render_config: SMARTY's depth-map film (default: config.image_size,
-        spp 1, one bounce); it must divide into 128x16 tiles.
+        spp 1, one bounce), of any size.
       variants: SMARTY's (depth-map scene of n_depthmaps variants,
         one-variant reference scene) in place of drawing them: by default
         variant i of the depth maps is randomized at step i from a

@@ -80,6 +80,7 @@ from fireflies_tpu_torch.render import (
     render_segmentation,
 )
 from fireflies_tpu_torch.render.soft import render_soft_silhouette
+from fireflies_tpu_torch.render.types import Camera, Geometry, Lights, Materials, RenderScene
 from fireflies_tpu_torch.utils import io as ffio
 from fireflies_tpu_torch.utils import math as ffmath
 from fireflies_tpu_torch.utils.mitsuba_xml import scene_from_mitsuba_xml
@@ -538,6 +539,72 @@ def build_yaml(device="cuda", size: int = 512):
     the analytic projector, the noise texture on the face-table route."""
     with tempfile.TemporaryDirectory() as tmp:
         return shape_from_scene(*yaml_scene(write_yaml_scene(tmp)), device, size)
+
+
+BLOCKER_QUADS = np.array([
+    [[-1, -1, -2], [1, -1, -2], [1, 1, -2], [-1, 1, -2]],
+    [[-2, -1.2, 0], [2, -1.2, 0], [2, 1.5, 0], [-2, 1.5, 0]],
+    [[-3, -4, -2.4], [3, -4, -2.4], [3, -4, -0.8], [-3, -4, -0.8]],
+    [[-1, -2, -1.4], [1, -2, -1.4], [1, -2, -0.6], [-1, -2, -0.6]]], np.float32)
+BLOCKER_CONFIG = RenderConfig(width=8, height=8, spp=2, max_bounces=3, reparam=True,
+                              reparam_indirect=True, reparam_ind_bounces=2)
+
+
+def blocker_scene(dx: torch.Tensor, device="cuda") -> RenderScene:
+    """tests/test_mb3_grad_nan.py's scene, one variant per entry of dx (B,):
+    camera -> wall A (z = -2) -> wall B (z = 0) -> an emissive panel
+    (y = -4, emission without an area light's NEE), and a grey blocker in
+    the y = -2 plane between B and the panel, moved dx along x.  Only the
+    warped bounce directions of BLOCKER_CONFIG (`reparam_indirect`, the
+    first two) see the blocker's edges move; d(mean red)/d(dx) at dx = 1
+    is the warped-area gradient this scene checks."""
+    b = dx.shape[0]
+    q = torch.as_tensor(BLOCKER_QUADS, device=device)
+    zero = torch.zeros_like(dx)
+    blocker = q[3][None] + torch.stack([dx, zero, zero], dim=-1)[:, None]
+    faces = [f for k in range(4) for f in ([4 * k, 4 * k + 1, 4 * k + 2],
+                                           [4 * k, 4 * k + 2, 4 * k + 3])]
+    geo = Geometry(vertices=torch.cat([q[:3].reshape(1, -1, 3).expand(b, -1, -1), blocker], 1),
+                   faces=torch.tensor(faces, device=device),
+                   face_mat=torch.tensor([0, 0, 0, 0, 1, 1, 0, 0], device=device),
+                   face_mesh=torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], device=device))
+    one = torch.ones(b, 2, device=device)
+    grey_and_panel = torch.tensor([[0.8] * 3, [0.0] * 3], device=device).expand(b, 2, 3)
+    mats = Materials(base_color=grey_and_panel, roughness=one, metallic=0 * one,
+                     specular=0 * one, spec_tint=0 * one, clearcoat=0 * one,
+                     clearcoat_gloss=one, sheen=0 * one, sheen_tint=0.5 * one,
+                     anisotropic=0 * one, spec_trans=0 * one, flatness=0 * one, ior=1.5 * one,
+                     thin=0 * one, flags=None,
+                     emission=torch.tensor([[0.0] * 3, [24.0] * 3], device=device).expand(b, 2, 3))
+    lights = Lights(kinds=(), to_world=torch.zeros(b, 0, 4, 4, device=device),
+                    intensity=torch.zeros(b, 0, 3, device=device),
+                    cutoff_cos=torch.zeros(b, 0, device=device),
+                    beam_cos=torch.zeros(b, 0, device=device),
+                    active=torch.zeros(b, 0, dtype=torch.bool, device=device))
+    cam = Camera(to_world=torch.eye(4, device=device)[None].expand(b, 4, 4),
+                 fov=torch.full((b,), 60.0, device=device),
+                 near=torch.full((b,), 0.01, device=device),
+                 far=torch.full((b,), 1000.0, device=device))
+    return RenderScene(geometry=geo, materials=mats, lights=lights, camera=cam)
+
+
+def blocker_gradient_samples(variants: int, seed0: int = 1000, device="cuda", h: float = 0.25):
+    """Samples of the blocker scene's gradient: per variant (generator
+    seed0 + i), d(mean red)/d(dx) of the warped render (BLOCKER_CONFIG) at
+    dx = 1, and the central difference of the plain render at 1 +- h with
+    the same generators; two (variants,) numpy arrays."""
+    def gens():
+        return [torch.Generator(device=device).manual_seed(seed0 + i) for i in range(variants)]
+
+    dx = torch.ones(variants, device=device, requires_grad=True)
+    img = render_rgb(blocker_scene(dx, device), gens(), BLOCKER_CONFIG)
+    img[..., 0].mean(dim=(1, 2)).sum().backward()
+    plain = BLOCKER_CONFIG.replace(reparam=False)
+    with torch.no_grad():
+        up, down = (render_rgb(blocker_scene(torch.full((variants,), 1.0 + s, device=device),
+                                         device), gens(), plain)[..., 0].mean(dim=(1, 2))
+                    for s in (h, -h))
+    return dx.grad.cpu().numpy(), ((up - down) / (2 * h)).cpu().numpy()
 
 
 BUILDERS = {"materials": build_materials, "emitters": build_emitters, "xml": build_xml,

@@ -201,15 +201,6 @@ def epipolar_line_segments(rays_local: Tensor, laser_to_world: Tensor, camera_to
     return torch.stack([p_near, p_far], dim=1)
 
 
-def _float_text(x: float) -> str:
-    """A float as JSON that YAML 1.1 readers also take as a float: with a
-    '.' before any exponent (PyYAML reads 1e-05 as a string)."""
-    text = repr(float(x))
-    if "e" in text and "." not in text.split("e")[0]:
-        text = text.replace("e", ".0e")
-    return text
-
-
 class Laser(Camera):
     """A beam pattern (K, 3) in the projector's local frame, on the
     projector's Transformable, with the camera's intrinsics; the pattern's
@@ -293,18 +284,16 @@ class Laser(Camera):
     # -- persistence ---------------------------------------------------------------------
 
     def save(self, filepath: str) -> None:
-        """Write `rays`, `fov`, `near_clip` and `far_clip` as JSON."""
-        rays = ",\n  ".join("[" + ", ".join(_float_text(x) for x in ray) + "]"
-                            for ray in self._rays.detach().cpu().tolist())
-        with open(filepath, "w") as f:
-            f.write(f'{{"rays": [\n  {rays}\n], "fov": {_float_text(self._fov)}, '
-                    f'"near_clip": {_float_text(self._near_clip)}, '
-                    f'"far_clip": {_float_text(self._far_clip)}}}\n')
+        """Write `rays`, `fov`, `near_clip` and `far_clip` as YAML, the
+        bytes the reference's `yaml.safe_dump` writes."""
+        ffio.write_yaml({"rays": self._rays.detach().cpu().tolist(), "fov": self._fov,
+                         "near_clip": self._near_clip, "far_clip": self._far_clip}, filepath)
 
     @classmethod
     def load(cls, filepath: str, transformable: Transformable, device="cuda") -> "Laser":
-        """A laser saved by either package (JSON or the JAX package's YAML)
-        on `transformable`, its rays on `device`."""
+        """A laser saved by either package (YAML, or the JSON that earlier
+        versions of this package wrote) on `transformable`, its rays on
+        `device`."""
         data = ffio.read_config_yaml(filepath)
         rays = torch.tensor(data["rays"], dtype=torch.float32, device=device).reshape(-1, 3)
         return cls(transformable, rays, fov=float(data["fov"]),

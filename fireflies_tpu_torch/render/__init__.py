@@ -9,8 +9,17 @@ from fireflies_tpu_torch.render.integrators import (
     render_segmentation,
     render_shape_index,
 )
+from fireflies_tpu_torch.render.intersect import (
+    closest_hit,
+    hit_attributes,
+    intersect_brute,
+    occluded,
+    occluded_any,
+)
 from fireflies_tpu_torch.render.pathtracer import render_rgb, trace_rays
+from fireflies_tpu_torch.render.rays import camera_rays, points_to_ndc, rays_from_ndc
 from fireflies_tpu_torch.render.reparam import render_depth_reparam, reparam_ndc
+from fireflies_tpu_torch.render.soft import render_soft_silhouette, soft_silhouette
 from fireflies_tpu_torch.render.types import (
     Camera,
     Geometry,
@@ -34,6 +43,16 @@ __all__ = [
     "render_depth_reparam",
     "reparam_ndc",
     "trace_rays",
+    "closest_hit",
+    "intersect_brute",
+    "occluded_any",
+    "occluded",
+    "hit_attributes",
+    "camera_rays",
+    "points_to_ndc",
+    "rays_from_ndc",
+    "render_soft_silhouette",
+    "soft_silhouette",
     "Camera",
     "Geometry",
     "Hit",

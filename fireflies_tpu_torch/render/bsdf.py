@@ -296,6 +296,14 @@ def evaluate_v(params: dict, n: Vec3, wo: Vec3, wi: Vec3, tangent: Vec3 | None =
     return v3m.where(reflect_side, f_up, v3m.where(trans_side, f_down, _zero(cos_o)))
 
 
+def evaluate(params: dict, n: Tensor, wo: Tensor, wi: Tensor,
+             tangent: Tensor | None = None) -> Tensor:
+    """BSDF value f(wo, wi), (B, N, 3), from (B, N, 3) arrays: the
+    reference's array form of evaluate_v."""
+    return evaluate_v(params, from_array(n), from_array(wo), from_array(wi),
+                      None if tangent is None else from_array(tangent)).to_array()
+
+
 def _lobe_probs(params: dict) -> tuple[Tensor, Tensor, Tensor]:
     """(p_diffuse, p_specular, p_transmission) lobe-selection probabilities."""
     w_t = (params["spec_trans"] * (1.0 - params["metallic"])).clamp(0.0, 1.0)
@@ -374,6 +382,16 @@ def sample_v(params: dict, n: Vec3, wo: Vec3, gens=None, tangent: Vec3 | None = 
             evaluate_v(params, n, wo, wi, tangent=tangent))
 
 
+def sample(params: dict, n: Tensor, wo: Tensor, gens=None, tangent: Tensor | None = None,
+           uniforms: tuple[Tensor, ...] | None = None):
+    """Importance-sample wi from (B, N, 3) arrays; returns (wi (B, N, 3),
+    pdf (B, N), f (B, N, 3)): the reference's array form of sample_v, one
+    torch.Generator per variant in place of its key."""
+    wi, pdf, f = sample_v(params, from_array(n), from_array(wo), gens,
+                          None if tangent is None else from_array(tangent), uniforms=uniforms)
+    return wi.to_array(), pdf, f.to_array()
+
+
 def pdf_v(params: dict, n: Vec3, wo: Vec3, wi: Vec3, tangent: Vec3 | None = None) -> Tensor:
     """Mixture pdf of `sample_v`.  The half-vector lobes' densities
     (specular and glass reflection and refraction) hold on either
@@ -421,3 +439,11 @@ def pdf_v(params: dict, n: Vec3, wo: Vec3, wi: Vec3, tangent: Vec3 | None = None
     pdf_up = p_d * pdf_diff + pdf_hv
     pdf_down = p_t * thin * pdf_thin + pdf_hv
     return torch.where(cos_i > _EPS, pdf_up, torch.where(cos_i < -_EPS, pdf_down, 0.0))
+
+
+def pdf_fn(params: dict, n: Tensor, wo: Tensor, wi: Tensor,
+           tangent: Tensor | None = None) -> Tensor:
+    """Mixture pdf of `sample`, (B, N), from (B, N, 3) arrays: the
+    reference's array form of pdf_v."""
+    return pdf_v(params, from_array(n), from_array(wo), from_array(wi),
+                 None if tangent is None else from_array(tangent))

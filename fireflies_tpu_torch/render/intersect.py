@@ -266,18 +266,26 @@ def hit_attributes(o: Tensor, d: Tensor, hit: Hit, geometry: Geometry) -> dict:
     """The reference's flat form of the hit attributes: o, d (B, N, 3) ->
     position, unit geometric normal (B, N, 3), t, u, v, mat_id, mesh_id
     (B, N); with `geometry.uvs` uv (B, N, 2) and the tangent, with
-    `geometry.normals` the smooth_normal.  `hit_attributes_table` over the
-    geometry's face table, so differentiable with respect to the vertices
-    and the rays; miss lanes are pinned (mask them with hit.valid).
+    `geometry.normals` the smooth_normal.  `hit_attributes_v` in arrays, so
+    differentiable with respect to the vertices and the rays; miss lanes
+    are pinned (mask them with hit.valid).
     """
-    attrs = hit_attributes_table(from_array(o), from_array(d), hit, build_face_table(geometry),
-                                 has_uvs=geometry.uvs is not None,
-                                 has_normals=geometry.normals is not None)
+    attrs = hit_attributes_v(from_array(o), from_array(d), hit, geometry)
     out = {k: v.to_array() if isinstance(v, Vec3) else v for k, v in attrs.items()
            if k not in ("uv_x", "uv_y")}
     if "uv_x" in attrs:
         out["uv"] = torch.stack([attrs["uv_x"], attrs["uv_y"]], dim=-1)
     return out
+
+
+def hit_attributes_v(o: Vec3, d: Vec3, hit: Hit, geometry: Geometry) -> dict:
+    """The reference's component form of the hit attributes: o, d Vec3 of
+    (B, N) components -> position, normal (and tangent, smooth_normal) as
+    Vec3, the rest (B, N); `hit_attributes_table` over the geometry's face
+    table."""
+    return hit_attributes_table(o, d, hit, build_face_table(geometry),
+                                has_uvs=geometry.uvs is not None,
+                                has_normals=geometry.normals is not None)
 
 
 def build_face_table(geometry: Geometry) -> Tensor:

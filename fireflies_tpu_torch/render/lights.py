@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from fireflies_tpu_torch.render.rays import uniform
 from fireflies_tpu_torch.render.texture import bilinear_sample, bilinear_sample_packed
 from fireflies_tpu_torch.render.types import LIGHT_SPOT, Geometry, Lights, Materials, Projector
-from fireflies_tpu_torch.render.vec3 import Vec3, rsqrt, splat
+from fireflies_tpu_torch.render.vec3 import Vec3, from_array, rsqrt, splat
 
 Tensor = torch.Tensor
 
@@ -83,6 +83,14 @@ def eval_light_v(lights: Lights, index: int, p: Vec3):
     return wi, dist, radiance * scale
 
 
+def eval_light(lights: Lights, index: int, p: Tensor):
+    """Light slot `index` at points p (B, N, 3): (wi (B, N, 3), dist
+    (B, N), radiance (B, N, 3)), the reference's array form of
+    eval_light_v."""
+    wi, dist, rad = eval_light_v(lights, index, from_array(p))
+    return wi.to_array(), dist, rad.to_array()
+
+
 def eval_projector_v(projector: Projector, p: Vec3, tex_table: Optional[Tensor] = None):
     """Projector at points p: (wi, dist, rad).  In texture mode the lookup
     reads `tex_table`, pack_neighborhood_table(projector.texture), when
@@ -125,6 +133,13 @@ def eval_projector_v(projector: Projector, p: Vec3, tex_table: Optional[Tensor] 
     return wi, dist, radiance
 
 
+def eval_projector(projector: Projector, p: Tensor):
+    """The projector at points p (B, N, 3): (wi, dist, radiance), the
+    reference's array form of eval_projector_v."""
+    wi, dist, rad = eval_projector_v(projector, from_array(p))
+    return wi.to_array(), dist, rad.to_array()
+
+
 def total_incident_v(lights: Lights, projector: Optional[Projector], p: Vec3,
                      proj_tex_table: Optional[Tensor] = None):
     """Every delta emitter at p, in light-slot order then the projector:
@@ -133,6 +148,35 @@ def total_incident_v(lights: Lights, projector: Optional[Projector], p: Vec3,
     if projector is not None:
         acc.append(eval_projector_v(projector, p, tex_table=proj_tex_table))
     return [a[0] for a in acc], [a[1] for a in acc], [a[2] for a in acc]
+
+
+def total_incident(lights: Lights, projector: Optional[Projector], p: Tensor):
+    """Every delta emitter at points p (B, N, 3), in light-slot order then
+    the projector: lists of (B, N, 3) wi, (B, N) dist and (B, N, 3)
+    radiance, the reference's array form of total_incident_v."""
+    wi, dist, rad = total_incident_v(lights, projector, from_array(p))
+    return [w.to_array() for w in wi], dist, [r.to_array() for r in rad]
+
+
+def sample_one_light(lights: Lights, projector: Optional[Projector], p: Tensor, gens,
+                     choice: Optional[Tensor] = None):
+    """One delta emitter picked uniformly at each point p (B, N, 3), from
+    each variant's generator (or the (B, N) indices `choice`): (wi (B, N,
+    3), dist (B, N), radiance over its pdf (B, N, 3)), the radiance times
+    the emitter count; zeros where there is no emitter."""
+    wi_l, dist_l, rad_l = total_incident(lights, projector, p)
+    total = len(wi_l)
+    if total == 0:
+        zeros = torch.zeros_like(p)
+        return zeros, zeros[..., 0], zeros
+    if choice is None:
+        choice = torch.stack([torch.randint(total, p.shape[1:2], generator=g, device=p.device)
+                              for g in gens])
+    pick = choice[None, ..., None].long()
+    wi = torch.gather(torch.stack(wi_l), 0, pick.expand(1, *p.shape))[0]
+    dist = torch.gather(torch.stack(dist_l), 0, pick[..., 0])[0]
+    rad = torch.gather(torch.stack(rad_l), 0, pick.expand(1, *p.shape))[0] * float(total)
+    return wi, dist, rad
 
 
 def emitter_positions(lights: Lights, projector: Optional[Projector]) -> list[Tensor]:

@@ -52,6 +52,7 @@ from fireflies_tpu_torch.render.intersect import (
     occluded_any,
 )
 from fireflies_tpu_torch.render.rays import (
+    _tile_perm,
     camera_rays_tiled,
     permute_rows,
     pixel_to_ndc,
@@ -430,14 +431,18 @@ def trace_rays(scene: RenderScene, o: Tensor, d: Tensor, gens, config: RenderCon
     return radiance.to_array()
 
 
-def _film_render(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
+def _film_render(scene: RenderScene, gens, config: RenderConfig, film_y0: int = 0,
+                 film_full_height: int | None = None) -> Tensor:
     """One sample per pixel; (B, H*W, 3) in row-major pixel order.  With
     `ray_chunk` below the film's ray count, the tile-major rays are padded
     (o = 0, d = 1) to whole chunks, traced chunk after chunk (each variant's
-    generator draws on from one chunk to the next) and sliced back."""
+    generator draws on from one chunk to the next) and sliced back.
+    `film_y0` / `film_full_height`: the config.height rows from row
+    film_y0 of a film_full_height-row film (a band)."""
     if config.reparam:
         return _film_render_reparam(scene, gens, config)
-    o, d, inv_perm = camera_rays_tiled(scene.camera, config.width, config.height, gens=gens)
+    o, d, inv_perm = camera_rays_tiled(scene.camera, config.width, config.height, gens=gens,
+                                       y_offset=film_y0, full_height=film_full_height)
     cam = scene.camera.to_world[:, :3, 3]
     n, chunk = o.shape[1], config.ray_chunk
     if chunk and chunk < n:
@@ -476,10 +481,12 @@ def _film_render_reparam(scene: RenderScene, gens, config: RenderConfig) -> Tens
     radiance = trace_rays(scene, permute_rows(o, w, h), permute_rows(d, w, h), gens, config,
                           primary_origin=scene.camera.to_world[:, :3, 3])
     radiance = radiance * permute_rows(area, w, h)[..., None]
-    return unpermute_rows(radiance, None, w, h)
+    perms = _tile_perm(w, h, dev)
+    return unpermute_rows(radiance, None if perms is None else perms[1], w, h)
 
 
-def _film_render_shared(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
+def _film_render_shared(scene: RenderScene, gens, config: RenderConfig, film_y0: int = 0,
+                        film_full_height: int | None = None) -> Tensor:
     """All spp samples with the first path vertex shared; (B, H*W, 3) in
     row-major pixel order.
 
@@ -489,9 +496,10 @@ def _film_render_shared(scene: RenderScene, gens, config: RenderConfig) -> Tenso
     vertices (`resume`).  One pixel jitter and one set of vertex-0
     aperture, envmap and area-light draws are shared by all samples, so spp
     averages the bounce randomness only; each pixel's estimate stays
-    unbiased.
+    unbiased.  `film_y0` / `film_full_height`: a band, as in _film_render.
     """
-    o, d, inv_perm = camera_rays_tiled(scene.camera, config.width, config.height, gens=gens)
+    o, d, inv_perm = camera_rays_tiled(scene.camera, config.width, config.height, gens=gens,
+                                       y_offset=film_y0, full_height=film_full_height)
     cap: dict = {}
     total = trace_rays(scene, o, d, gens, config, primary_origin=scene.camera.to_world[:, :3, 3],
                        v0_capture=cap)
@@ -510,33 +518,47 @@ def _film_render_shared(scene: RenderScene, gens, config: RenderConfig) -> Tenso
     return unpermute_rows(total, inv_perm, config.width, config.height)
 
 
-def render_rgb(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
+def render_rgb(scene: RenderScene, gens, config: RenderConfig, *, film_y0: int = 0,
+               film_full_height: int | None = None) -> Tensor:
     """Monte-Carlo RGB render of every variant, (B, H, W, 3).  `gens`: one
     torch.Generator per variant (pixel jitter and bounce draws).  With
     `shared_primary` (and no `ray_chunk` or `reparam`) the first vertex is
     shared by the spp samples (_film_render_shared); otherwise the spp
     samples are a Python loop of whole passes.
 
+    `film_y0` / `film_full_height` render a horizontal band: the
+    config.height rows from pixel row film_y0 of a film_full_height-row
+    film, with that film's NDC mapping (what parallel.render_tile_parallel
+    gives each rank).  Under draws that do not depend on the band (pixel
+    centres, `gens=None`, and nothing else drawn), the bands concatenated
+    are the whole film's render.
+
     With `reparam` the image's value comes from an ordinary pass without
     autograd and its gradient from a second, warped-area pass (the
     generators draw both, in that order).  The two must not share samples:
     for a nonlinear loss g(img) a sample that supplies both g'(img) and
     d(img) biases the product (with an L2 loss every boundary sample lands
-    where img - target is 0, and silhouette gradients vanish)."""
+    where img - target is 0, and silhouette gradients vanish).  The warp
+    samples the whole film, so bands raise NotImplementedError with it."""
     if config.reparam:
+        if film_full_height is not None:
+            raise NotImplementedError(
+                "band-parallel rendering (film_y0/film_full_height) is not supported with "
+                "config.reparam: the warped-area pass samples the full film")
         with torch.no_grad():
             primal = render_rgb(scene, gens, config.replace(reparam=False))
         grad_img = _render_rgb_samples(scene, gens, config)
         return primal + (grad_img - grad_img.detach())  # in value exactly primal
-    return _render_rgb_samples(scene, gens, config)
+    return _render_rgb_samples(scene, gens, config, film_y0, film_full_height)
 
 
-def _render_rgb_samples(scene: RenderScene, gens, config: RenderConfig) -> Tensor:
+def _render_rgb_samples(scene: RenderScene, gens, config: RenderConfig, film_y0: int = 0,
+                        film_full_height: int | None = None) -> Tensor:
     if config.shared_primary and not config.reparam and not config.ray_chunk:
-        img = _film_render_shared(scene, gens, config)
+        img = _film_render_shared(scene, gens, config, film_y0, film_full_height)
         return img.reshape(scene.batch, config.height, config.width, 3)
     total = None
     for _ in range(config.spp):
-        img = _film_render(scene, gens, config)
+        img = _film_render(scene, gens, config, film_y0, film_full_height)
         total = img if total is None else total + img
     return (total / config.spp).reshape(scene.batch, config.height, config.width, 3)

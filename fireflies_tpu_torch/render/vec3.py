@@ -135,3 +135,17 @@ def where(mask: Tensor, a: Vec3, b: Vec3) -> Vec3:
         torch.where(mask, a.y, b.y),
         torch.where(mask, a.z, b.z),
     )
+
+
+def v3(x, y, z) -> Vec3:
+    """A Vec3 of three components (tensors or numbers)."""
+    return Vec3(torch.as_tensor(x), torch.as_tensor(y), torch.as_tensor(z))
+
+
+def lerp(t, a: Vec3, b: Vec3) -> Vec3:
+    return a * (1.0 - t) + b * t
+
+
+def gather(table: Vec3, idx: Tensor) -> Vec3:
+    """Row gather from a table of (M,) components."""
+    return Vec3(table.x[idx], table.y[idx], table.z[idx])

@@ -102,7 +102,11 @@ def _apply_randomize(entity, spec: dict) -> None:
 def load_scene(path: str | Path | dict):
     """Load a YAML scene description (a file, or its dict); returns (Scene,
     bridge_kwargs).  Paths in the file (`obj`, `animation.obj_dir`) are
-    relative to it."""
+    relative to it.  The file is read by `utils.io.yaml_loads`, which reads
+    what `yaml.safe_load` reads of block and flow collections, scalars,
+    anchors and aliases, the '<<' merge key and block scalars (`|`, `>`);
+    any other YAML construct (a tag, a directive, a complex key) raises
+    ValueError."""
     desc = path if isinstance(path, dict) else ffio.read_config_yaml(path)
     base_dir = Path(path).parent if not isinstance(path, dict) else Path(".")
 

@@ -8,10 +8,13 @@ subset that `yaml.safe_dump` writes and scene descriptions use: block
 mappings and sequences (sequences of mappings, of sequences and of
 scalars), flow sequences and mappings (JSON among them), plain, single-
 and double-quoted scalars resolved as YAML 1.1 does (null, booleans, ints,
-floats; `1e5` stays a string, `1.0e+5` is a float), and comments.
-Anchors, aliases, tags, block scalars (`|`, `>`) and timestamps are not
-read.  OBJ files are read by the Python parser (fan triangulation,
-negative indices, per-face uv indices).
+floats; `1e5` stays a string, `1.0e+5` is a float), comments, anchors and
+aliases (`&a` / `*a`), the merge key (`<<`), and literal and folded block
+scalars (`|`, `>`, with the `-` / `+` chomping and an indentation
+indicator), as `yaml.safe_load` reads them.  Tags (`!`), directives,
+complex keys and timestamps raise ValueError or stay strings.  OBJ files
+are read by the Python parser (fan triangulation, negative indices,
+per-face uv indices).
 """
 
 from __future__ import annotations
@@ -208,19 +211,71 @@ def _map_split(text: str):
     return None
 
 
+def _anchor_split(text: str):
+    """(name, rest) of a node that opens with an anchor '&name'."""
+    end = 1
+    while end < len(text) and text[end] not in " \t\n,[]{}":
+        end += 1
+    if end == 1:
+        raise ValueError(f"empty anchor in {text!r}")
+    return text[1:end], text[end:].strip()
+
+
+def _alias(anchors: dict, name: str):
+    if name not in anchors:
+        raise ValueError(f"unknown alias *{name}")
+    return anchors[name]
+
+
+def _mapping(pairs: list, merge_keys: set):
+    """A mapping from its (key, value) entries in order, the entries whose
+    index is in `merge_keys` merged as yaml.safe_load merges '<<': each
+    merged mapping (of a list, the earlier ones winning) under the later
+    merges and the explicit keys."""
+    if not merge_keys:
+        return dict(pairs)
+    out = {}
+    for k, (_, value) in enumerate(pairs):
+        if k in merge_keys:
+            sources = value if isinstance(value, list) else [value]
+            if not all(isinstance(m, dict) for m in sources):
+                raise ValueError("a merge key '<<' takes a mapping or a list of mappings")
+            for m in reversed(sources):
+                out.update(m)
+    out.update((key, value) for k, (key, value) in enumerate(pairs) if k not in merge_keys)
+    return out
+
+
 class _Flow:
     """A flow node ([...], {...} or a scalar) parsed from one string."""
 
-    def __init__(self, text: str):
-        self.text, self.i = text, 0
+    def __init__(self, text: str, anchors: dict):
+        self.text, self.i, self.anchors = text, 0, anchors
 
     def _skip(self) -> None:
         while self.i < len(self.text) and self.text[self.i] in " \t\n":
             self.i += 1
 
+    def _name(self) -> str:
+        start = self.i
+        while self.i < len(self.text) and self.text[self.i] not in " \t\n,[]{}":
+            self.i += 1
+        return self.text[start:self.i]
+
     def node(self, in_map_key: bool = False):
         self._skip()
         c = self.text[self.i:self.i + 1]
+        if c == "!":
+            raise ValueError(f"unsupported YAML tag in {self.text!r}")
+        if c == "*":
+            self.i += 1
+            return _alias(self.anchors, self._name())
+        if c == "&":
+            self.i += 1
+            name = self._name()
+            value = self.node(in_map_key)
+            self.anchors[name] = value
+            return value
         if c == "[":
             self.i += 1
             items = []
@@ -235,12 +290,14 @@ class _Flow:
                     self.i += 1
         if c == "{":
             self.i += 1
-            out = {}
+            pairs, merges = [], set()
             while True:
                 self._skip()
                 if self.text[self.i] == "}":
                     self.i += 1
-                    return out
+                    return _mapping(pairs, merges)
+                if self.text.startswith("<<", self.i):
+                    merges.add(len(pairs))
                 key = self.node(in_map_key=True)
                 self._skip()
                 value = None
@@ -248,7 +305,7 @@ class _Flow:
                     self.i += 1
                     value = self.node()
                     self._skip()
-                out[key] = value
+                pairs.append((key, value))
                 if self.text[self.i] == ",":
                     self.i += 1
         if c in ("'", '"'):
@@ -271,8 +328,10 @@ class _Block:
     """Block-style YAML over the (indent, text, raw line number) of each
     line with content, comments removed; `raw` holds every line."""
 
-    def __init__(self, lines: list, raw: list):
+    def __init__(self, lines: list, raw: list, final_newline: bool = True):
         self.lines, self.raw, self.i = lines, raw, 0
+        self.final_newline = final_newline
+        self.anchors: dict = {}
 
     def _is_item(self, k: int, indent: int) -> bool:
         ind, text, _ = self.lines[k]
@@ -292,12 +351,15 @@ class _Block:
         while self.i < len(self.lines) and self._is_item(self.i, indent):
             _, text, row = self.lines[self.i]
             rest = text[1:].lstrip(" \t")
-            if not rest:
+            if not rest or rest.startswith("&") and not _anchor_split(rest)[1]:
                 self.i += 1
                 if self.i < len(self.lines) and self.lines[self.i][0] > indent:
-                    items.append(self.node(indent))
+                    item = self.node(indent)
                 else:
-                    items.append(None)
+                    item = None
+                if rest:
+                    self.anchors[_anchor_split(rest)[0]] = item
+                items.append(item)
                 continue
             # The item's content starts a node at its own column.
             self.lines[self.i] = (indent + len(text) - len(rest), rest, row)
@@ -305,31 +367,63 @@ class _Block:
         return items
 
     def mapping(self, indent: int) -> dict:
-        out = {}
+        pairs, merges = [], set()
         while self.i < len(self.lines) and self.lines[self.i][0] == indent:
             _, text, row = self.lines[self.i]
+            key_anchor = None
+            if text.startswith("&"):  # an anchor before an implicit key names the key
+                key_anchor, text = _anchor_split(text)
             split = _map_split(text)
             if split is None:
                 break
             key, value = split
+            if key_anchor is not None:
+                self.anchors[key_anchor] = key
+            if text.startswith("<<"):
+                merges.add(len(pairs))
+            elif text.startswith("*"):
+                key = _alias(self.anchors, str(key)[1:].strip())
             self.i += 1
-            if value:
-                out[key] = self.inline(value, indent, row)
-            elif self.i < len(self.lines) and self.lines[self.i][0] > indent:
-                out[key] = self.node(indent)
-            elif self.i < len(self.lines) and self._is_item(self.i, indent):
-                out[key] = self.sequence(indent)
-            else:
-                out[key] = None
-        return out
+            pairs.append((key, self.value(value, indent, row)))
+        return _mapping(pairs, merges)
+
+    def value(self, text: str, indent: int, row: int):
+        """The value of a mapping entry at column `indent` whose text after
+        the ':' is `text` (empty when the value is on the next lines)."""
+        if text.startswith("&"):
+            name, rest = _anchor_split(text)
+            value = self.value(rest, indent, row)
+            self.anchors[name] = value
+            return value
+        if text:
+            return self.inline(text, indent, row)
+        if self.i < len(self.lines) and self.lines[self.i][0] > indent:
+            return self.node(indent)
+        if self.i < len(self.lines) and self._is_item(self.i, indent):
+            return self.sequence(indent)
+        return None
 
     def inline(self, text: str, parent: int, row: int):
         """A value written on its entry's line (raw line `row`): a flow
         collection or a quoted scalar (continued on the next raw lines until
         closed), or a plain scalar (continued by the lines indented deeper
-        than its entry)."""
-        if text[0] in "&*!|>":
+        than its entry), an alias, an anchored node or a block scalar."""
+        if text[0] == "!":
             raise ValueError(f"unsupported YAML construct: {text!r}")
+        if text[0] == "*":
+            return _alias(self.anchors, text[1:].strip())
+        if text[0] == "&":
+            name, rest = _anchor_split(text)
+            if rest:
+                value = self.inline(rest, parent, row)
+            elif self.i < len(self.lines) and self.lines[self.i][0] > parent:
+                value = self.node(parent)
+            else:
+                value = None
+            self.anchors[name] = value
+            return value
+        if text[0] in "|>":
+            return self.block_scalar(text, parent, row)
         if text[0] in "[{'\"":
             quoted = text[0] in "'\""
             row += 1
@@ -338,7 +432,7 @@ class _Block:
                 row += 1
             while self.i < len(self.lines) and self.lines[self.i][2] < row:
                 self.i += 1
-            flow = _Flow(text)
+            flow = _Flow(text, self.anchors)
             value = flow.node()
             rest = text[flow.i:].strip()
             if rest and not rest.startswith("#"):
@@ -349,9 +443,74 @@ class _Block:
             self.i += 1
         return _resolve(text)
 
+    def block_scalar(self, header: str, parent: int, row: int) -> str:
+        """A literal (|) or folded (>) block scalar whose header is on raw
+        line `row`, inside a collection at column `parent`: its lines are
+        the raw lines below that are blank or indented to its column, read
+        as PyYAML's scanner reads them (clip, strip (-) or keep (+) the
+        final line breaks; an indentation digit counts from `parent`)."""
+        m = re.fullmatch(r"([|>])(?:([1-9])([-+]?)|([-+])([1-9]?))?", header)
+        if m is None:
+            raise ValueError(f"unsupported block scalar header {header!r}")
+        folded = m.group(1) == ">"
+        chomp = m.group(3) or m.group(4) or ""
+        step = int(m.group(2) or m.group(5) or 0)
+        min_indent = max(parent + 1, 1)
+        raw = self.raw
+        r = row + 1
+        if step:
+            indent = min_indent + step - 1
+        else:
+            indent = min_indent
+            for line in raw[r:]:
+                lead = len(line) - len(line.lstrip(" "))
+                indent = max(indent, lead)
+                if line.strip(" "):
+                    break
+
+        def kind(k: int) -> str:
+            line = raw[k]
+            if len(line) > indent and not line[:indent].strip(" "):
+                return "text"
+            return "break" if not line.strip(" ") else "end"
+
+        def line_break(k: int) -> str:
+            return "\n" if k + 1 < len(raw) or self.final_newline else ""
+
+        chunks, breaks, last_break = [], [], ""
+        while r < len(raw) and kind(r) == "break":
+            breaks.append(line_break(r))
+            r += 1
+        while r < len(raw) and kind(r) == "text":
+            chunks += breaks
+            text = raw[r][indent:]
+            chunks.append(text)
+            last_break = line_break(r)
+            r += 1
+            breaks = []
+            while r < len(raw) and kind(r) == "break":
+                breaks.append(line_break(r))
+                r += 1
+            if r < len(raw) and kind(r) == "text":
+                nxt = raw[r][indent:]
+                if (folded and last_break == "\n" and text[0] not in " \t"
+                        and nxt[0] not in " \t"):
+                    if not breaks:
+                        chunks.append(" ")
+                else:
+                    chunks.append(last_break)
+        if chomp != "-":
+            chunks.append(last_break)
+        if chomp == "+":
+            chunks += breaks
+        while self.i < len(self.lines) and self.lines[self.i][2] < r:
+            self.i += 1
+        return "".join(chunks)
+
 
 def yaml_loads(text: str):
-    """Parse one YAML document (the subset this module covers)."""
+    """Parse one YAML document (the subset this module covers; see the
+    module docstring)."""
     raw = text.splitlines()
     lines = []
     for row, line in enumerate(raw):
@@ -360,7 +519,7 @@ def yaml_loads(text: str):
             lines.append((len(line) - len(line.lstrip(" ")), line.strip(), row))
     if not lines:
         return None
-    block = _Block(lines, raw)
+    block = _Block(lines, raw, final_newline=text.endswith(("\n", "\r")))
     value = block.node(-1)
     if block.i != len(lines):
         raise ValueError(f"unparsed YAML from line {lines[block.i][1]!r}")

@@ -42,6 +42,15 @@ def rot_x(alpha: Tensor) -> Tensor:
          torch.stack([zero, s, c], -1)], -2)
 
 
+# The reference's names for the three rotations (utils/math.py:83-88).
+get_yaw_transform = rot_z
+get_pitch_transform = rot_y
+get_roll_transform = rot_x
+get_z_transform = rot_z
+get_y_transform = rot_y
+get_x_transform = rot_x
+
+
 def euler_to_rotation(angles: Tensor) -> Tensor:
     """Euler XYZ angles (3,) -> 3x3 matrix ``Rz @ Ry @ Rx``."""
     return rot_z(angles[..., 2]) @ rot_y(angles[..., 1]) @ rot_x(angles[..., 0])

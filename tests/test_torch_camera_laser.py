@@ -174,16 +174,23 @@ def test_laser_save_load_across_packages(tmp_path):
     rays = np.array(jx_laser.generate_uniform_rays_by_count(3, 3, 30.0))
     rays[0, 0] = 2.5e-9  # a component written with an exponent
     # near_clip's shortest repr, 1e-05, has no '.': YAML 1.1 would read it
-    # as a string, so the port writes 1.0e-05.
+    # as a string, so both packages write 1.0e-05.
     jl = jx_projection.Laser(jp, rays, fov=30.0, near_clip=1e-5, far_clip=250.0)
     jl.save(str(tmp_path / "jax.yml"))
     loaded = tc_laser.Laser.load(str(tmp_path / "jax.yml"), tp, device="cpu")
     np.testing.assert_array_equal(loaded.local_rays().numpy(), rays)
     assert (loaded.fov(), loaded.near_clip(), loaded.far_clip()) == (30.0, 1e-5, 250.0)
-    loaded.save(str(tmp_path / "port.json"))
-    assert "1.0e-05" in (tmp_path / "port.json").read_text()
-    back = jx_projection.Laser.load(str(tmp_path / "port.json"), jp)
+    loaded.save(str(tmp_path / "port.yml"))
+    # The port writes the bytes yaml.safe_dump writes.
+    assert (tmp_path / "port.yml").read_bytes() == (tmp_path / "jax.yml").read_bytes()
+    assert "1.0e-05" in (tmp_path / "port.yml").read_text()
+    back = jx_projection.Laser.load(str(tmp_path / "port.yml"), jp)
     np.testing.assert_array_equal(np.asarray(back.local_rays()), rays)
     assert (back.fov(), back.near_clip(), back.far_clip()) == (30.0, 1e-5, 250.0)
-    again = tc_laser.Laser.load(str(tmp_path / "port.json"), tp, device="cpu")
+    again = tc_laser.Laser.load(str(tmp_path / "port.yml"), tp, device="cpu")
     np.testing.assert_array_equal(again.local_rays().numpy(), rays)
+    # A JSON file of the earlier port still loads.
+    (tmp_path / "old.json").write_text(
+        '{"rays": [[0.0, 0.0, -1.0]], "fov": 30.0, "near_clip": 1.0e-05, "far_clip": 250.0}\n')
+    old = tc_laser.Laser.load(str(tmp_path / "old.json"), tp, device="cpu")
+    assert old.local_rays().tolist() == [[0.0, 0.0, -1.0]] and old.near_clip() == 1e-5
