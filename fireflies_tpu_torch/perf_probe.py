@@ -3,10 +3,10 @@
     python -m fireflies_tpu_torch.perf_probe <probe or all> [out.json]
 
 Counterpart of tools/perf_probe.py (`probe_hitfrac`, `probe_kernel`,
-`probe_roofline`; its `probe_step` needs the projector-texture route, which
-is not ported).  The probes are hitfrac, kernel, roofline, sass, votes,
-launches and tc_sum.  Each measurement prints one JSON line; with `out.json` they are
-also written there.  The card's name and power limit come first.
+`probe_roofline`, `probe_step`).  The probes are hitfrac, kernel, roofline,
+sass, votes, launches, tc_sum and step.  Each measurement prints one JSON
+line; with `out.json` they are also written there.  The card's name and
+power limit come first.
 
 Timing: CUDA events around `n` calls after one warm-up call (`cuda_ms`),
 the calls' mean.  A call is what a user pays for it: packing, tile lists
@@ -69,6 +69,14 @@ and kernel.  Every probe uses one variant of the vocalfold scene and
   error of 20000 random sums in units of 2^-23 S (S the sum of the
   products' magnitudes) beside `intersect_mxu.TC_SUM_BOUND`, the bound X1's
   filter assumes.
+- step: the batched pattern step of `main_path` (one batched render of
+  16 vocalfold variants at 512x512 and one backward to the beams) split by
+  phase (`probe_step`): `full`, `fwd_only` (no backward) and `bounces1`
+  (one bounce), each the best of two chains of 8 steps, as `step_<name>`
+  rows with ms, renders/s and the share of `full`'s time.  The reference's
+  nine FF_* knob variants are not in the port; `profile_main`'s device time
+  by kernel stands in for them.  On the CPU (`probe_step("cpu", ...)`) it
+  runs the plain versions.
 
 `all` runs hitfrac, kernel and roofline.  Needs a CUDA device.
 """
@@ -77,6 +85,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -494,6 +503,95 @@ def probe_roofline(device, size: int = 512, n_iter: int = 20) -> list[dict]:
                              tested_per_ray=tested / n_rays,
                              x_kernel_roof_if_no_earlyout=listed / ms * 1e3 / roof))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The step (`step`)
+# ---------------------------------------------------------------------------
+
+# probe_step's variants: (name, with the backward, bounces).  The reference's
+# nine other variants (tools/perf_probe.py:277-285) switch phases of its
+# renderer off through FF_* environment knobs read at trace time; the port's
+# renderer has no such knobs, and `profile_main`'s device time by kernel
+# answers their questions instead (PERF.md §5).
+STEP_VARIANTS = (("full", True, 2), ("fwd_only", False, 2), ("bounces1", True, 1))
+KNOB_VARIANTS = ("no_occl", "no_nee", "nee_const_rad", "nee_const_f", "b1_fake_hit",
+                 "fake_attrs", "attrs_gather_only", "no_basetex", "const_sample")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_chain(op, x0: Tensor, n_iter: int, trials: int = 2) -> float:
+    """Seconds per call of `op` (tensor -> tensor of its shape, each call
+    fed the last one's output), the best of `trials` chains of `n_iter`
+    calls after one warm-up call, each chain ending in a host readback of
+    its output's sum (the reference's `timed_scan`)."""
+    best = None
+    for trial in range(trials + 1):
+        _sync(x0.device)
+        t0 = time.perf_counter()
+        x = x0
+        for _ in range(1 if trial == 0 else n_iter):
+            x = op(x)
+        total = float(x.sum())
+        dt = time.perf_counter() - t0
+        if not math.isfinite(total):
+            raise AssertionError("the step's output is not finite")
+        if trial:
+            best = dt if best is None else min(best, dt)
+    return best / n_iter
+
+
+def probe_step(device, size: int = 512, batch: int = 16, n_iter: int = 8, resolution: int = 24,
+               spp: int = 1, coherent: bool = False, static_geometry: bool = False,
+               variants=None, analytic: bool = False, trials: int = 2) -> list[dict]:
+    """The batched step of `main_path` (`pattern_step`: one batched render
+    of `batch` vocalfold variants at `resolution`, size x size, and one
+    backward to the beams) split by phase: `full`, `fwd_only` (the render
+    without the backward) and `bounces1` (max_bounces 1), each timed as a
+    chain of `n_iter` steps (`timed_chain`), one `step_<name>` row each with
+    ms, renders/s and the share of `full`'s time.  `variants` runs a subset;
+    `full` is always kept, since the shares need it.  The other arguments are
+    the reference's FF_PROBE_* settings: spp, coherent bounce, static
+    geometry (default the face-table route) and the analytic projector
+    (default the texture route)."""
+    names = [v[0] for v in STEP_VARIANTS]
+    keep = set(names) if variants is None else set(variants) | {"full"}
+    unknown = sorted(keep - set(names))
+    if unknown:
+        knobs = [v for v in unknown if v in KNOB_VARIANTS]
+        raise ValueError(f"unknown step variants {unknown}" + (
+            f"; {knobs} need the reference's FF_* knobs, which the port's renderer does not "
+            "have: profile_main's device time by kernel answers them" if knobs else ""))
+    bridge, randomize, beams = main_path.build(device, resolution=resolution)
+    cfg = main_path.bench_config(size=size, spp=spp, coherent_bounce=coherent,
+                                 static_geometry=static_geometry)
+    seeds = list(range(batch))
+    base, records = None, []
+    for name, with_grad, bounces in STEP_VARIANTS:
+        if name not in keep:
+            continue
+        cfg_v = cfg.replace(max_bounces=bounces)
+
+        def op(rays, cfg_v=cfg_v, with_grad=with_grad):
+            if with_grad:
+                _, grad = main_path.pattern_step(bridge, randomize, rays, seeds, cfg_v, analytic)
+                return rays + 1e-20 * grad
+            with torch.no_grad():
+                img = main_path.render_batch(bridge, randomize, rays, seeds, cfg_v, analytic)
+                return rays + 1e-20 * img.mean()
+
+        dt = timed_chain(op, beams, n_iter, trials)
+        if name == "full":
+            base = dt
+        records.append(_emit(f"step_{name}", ms=dt * 1e3, renders_s=batch / dt,
+                             frac_of_full=dt / base, size=size, batch=batch, n_iter=n_iter,
+                             faces=len(bridge._faces), spp=spp, coherent=coherent,
+                             static_geometry=static_geometry, analytic=analytic))
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -996,7 +1094,7 @@ def probe_tc_sum(device) -> list[dict]:
 
 PROBES = {"hitfrac": probe_hitfrac, "kernel": probe_kernel, "roofline": probe_roofline,
           "sass": probe_sass, "votes": probe_votes, "launches": probe_launches,
-          "tc_sum": probe_tc_sum}
+          "tc_sum": probe_tc_sum, "step": probe_step}
 
 
 def main() -> None:

@@ -25,7 +25,7 @@ from test_torch_shading import N, _close, _unit, _v
 from fireflies_tpu.render import bsdf as jx_bsdf
 from fireflies_tpu_torch.render import bsdf as tc_bsdf
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _CONDITION = 10.0
 DEFAULTS = dict(base_color=(0.9, 0.6, 0.4), roughness=0.5, metallic=0.0, specular=0.5,

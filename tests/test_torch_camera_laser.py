@@ -31,7 +31,7 @@ from fireflies_tpu_torch.projection import laser as tc_laser
 from fireflies_tpu_torch.utils import intersections as tc_isect
 from fireflies_tpu_torch.utils import math as tc_math
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CAM_WORLD = jx_math.look_at_np([0.3, -0.2, 2.5], [0.0, 0.1, 0.0], [0.0, 1.0, 0.0])
 PROJ_WORLD = jx_math.look_at_np([0.8, 0.1, 2.2], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])

@@ -15,7 +15,7 @@ from fireflies_tpu_torch.render import bsdf as tc_bsdf
 from fireflies_tpu_torch.render import pathtracer as tc_pt
 from fireflies_tpu_torch.render import vec3 as tc_vec3
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def test_coherent_bounce_draw_matches():

@@ -28,7 +28,7 @@ from fireflies_tpu_torch import bench, datagen
 from fireflies_tpu_torch import postprocessing as tc_post
 from fireflies_tpu_torch.utils import png as tc_png
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 H, W = 24, 32
 
@@ -128,9 +128,9 @@ def test_postprocessors():
 
 
 def test_bench_measure_datagen_cpu_line():
-    line = bench.measure_datagen(size=128, spp=1, resolution=8, batch=2, n_frames=2, device="cpu")
+    line = bench.measure_datagen(size=64, spp=1, resolution=8, batch=2, n_frames=2, device="cpu")
     assert set(line) == {"metric", "value", "unit", "detail"}
-    assert line["metric"].startswith("128x128 dataset-farm frames/sec/chip (vocalfold ")
+    assert line["metric"].startswith("64x64 dataset-farm frames/sec/chip (vocalfold ")
     assert line["unit"] == "frames/sec/chip" and np.isfinite(line["value"]) and line["value"] > 0
     detail = line["detail"]
     assert detail["frames_accepted"] == 2 and detail["static_geometry"] is False

@@ -36,7 +36,7 @@ from fireflies_tpu_torch.render import texture as tc_tex
 from fireflies_tpu_torch.render import types as tc_types
 from fireflies_tpu_torch.render.bridge import SceneBridge as TcBridge
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 N = 4096
 

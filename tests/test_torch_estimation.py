@@ -37,7 +37,7 @@ from fireflies_tpu_torch.render import RenderConfig as TcConfig
 from fireflies_tpu_torch.render import SceneBridge as TcBridge
 from fireflies_tpu_torch.render import integrators as tc_int
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W, H = 128, 32
 CFG = dict(n_beams=40, n_depthmaps=3, image_size=(W, H), smarty_min_radius=2.0,

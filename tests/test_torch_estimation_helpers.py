@@ -36,7 +36,7 @@ from fireflies_tpu_torch.render import SceneBridge as TcBridge
 from fireflies_tpu_torch.render import integrators as tc_int
 from fireflies_tpu_torch.render.types import Camera as TcCamera
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W, H = 128, 32
 

@@ -48,7 +48,7 @@ from fireflies_tpu_torch.render import intersect as tc_intersect
 from fireflies_tpu_torch.render import rays as tc_rays
 from fireflies_tpu_torch.render import render_rgb
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 RES = 6  # vocalfold resolution
 

@@ -14,7 +14,7 @@ from test_torch_stream import N_RAYS, ORIGIN, _scene, _t
 from fireflies_tpu_torch.render.cuda import intersect_culled as tc_culled
 from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _round32(exact):

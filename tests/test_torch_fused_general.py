@@ -13,7 +13,7 @@ from test_torch_stream import N_RAYS, _scene, _t
 from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 from fireflies_tpu_torch.render.cuda import intersect_stream as tc_stream
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _woop_general_numpy(o, d, tmax, woop16, t_min, fused=True):

@@ -42,7 +42,7 @@ from fireflies_tpu_torch.render import soft as tc_soft
 from fireflies_tpu_torch.render import types as tc_types
 from fireflies_tpu_torch.render import vec3 as tc_vec3
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 B, V, F, N = 2, 40, 64, 512
 

@@ -31,7 +31,7 @@ from fireflies_tpu_torch.projection import laser as tc_laser
 from fireflies_tpu_torch.render import RenderConfig as TcConfig
 from fireflies_tpu_torch.render import integrators as tc_int
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W, H = 128, 16
 RESOLUTION = 12

@@ -22,7 +22,7 @@ from fireflies_tpu_torch.render.cuda import intersect_culled as tc_culled
 from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 from fireflies_tpu_torch.render.types import Geometry
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 N_RAYS = 4096  # two 2048-ray tiles
 ORIGIN = np.array([0.0, 0.5, 4.0], np.float32)

@@ -14,7 +14,7 @@ from fireflies_tpu.render.pallas import intersect_kernel as jx_kernel
 from fireflies_tpu_torch.render.cuda import intersect_culled as tc_culled
 from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _grid(n=24):

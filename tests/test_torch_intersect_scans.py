@@ -21,7 +21,7 @@ from fireflies_tpu_torch.render import intersect as tc_intersect
 from fireflies_tpu_torch.render.cuda import intersect_culled as tc_culled
 from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def test_port_scans_match_reference_scans():

@@ -48,6 +48,8 @@ from fireflies_tpu_torch.render.cuda import intersect_general_culled as igc
 from fireflies_tpu_torch.render.cuda import intersect_kernel as ik
 from fireflies_tpu_torch.render.cuda import intersect_stream as ist
 
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 

@@ -19,7 +19,7 @@ from fireflies_tpu_torch.render import lights as tc_lights
 from fireflies_tpu_torch.render import types as tc_types
 from fireflies_tpu_torch.render import vec3 as tc_vec3
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _look_at(origin, target):

@@ -38,7 +38,7 @@ from fireflies_tpu_torch.render import types as tc_types
 from fireflies_tpu_torch.render import vec3 as tc_vec3
 from fireflies_tpu_torch.render.bridge import SceneBridge as TcBridge
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 N = 2048
 

@@ -16,6 +16,8 @@ import torch
 from fireflies_tpu.utils import io as jx_io
 from fireflies_tpu_torch.utils import io as tc_io
 
+torch.set_num_threads(1)
+
 PARITY = "tools/parity_scenes"
 
 

@@ -29,7 +29,7 @@ from fireflies_tpu_torch.utils import mitsuba_export as tc_export
 from fireflies_tpu_torch.utils import mitsuba_xml as tc_xml
 from test_mitsuba_xml import XML
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 PARITY = "tools/parity_scenes"
 
 

@@ -14,7 +14,7 @@ from experiments import intersect_mxu as jx_mxu
 from fireflies_tpu_torch.experiments import intersect_mxu as tc_mxu
 from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def test_mxu_packing_matches_jax():

@@ -19,7 +19,7 @@ from test_torch_stream import _t
 from fireflies_tpu_torch.experiments import intersect_mxu as mx
 from fireflies_tpu_torch.render.cuda import intersect_kernel as ik
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _rna_reference(x: np.ndarray) -> np.ndarray:

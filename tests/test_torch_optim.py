@@ -21,7 +21,7 @@ import torch
 from fireflies_tpu import optim as jx_optim
 from fireflies_tpu_torch import optim as tc_optim
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -29,7 +29,7 @@ from fireflies_tpu_torch.projection import laser as tc_laser
 from fireflies_tpu_torch.render import rays as tc_rays
 from fireflies_tpu_torch.utils import math as ffmath
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 FOV = 30.0
 

@@ -18,7 +18,7 @@ from fireflies_tpu_torch.render.cuda import intersect_culled as ic
 from fireflies_tpu_torch.render.cuda import intersect_kernel as ik
 from fireflies_tpu_torch.render.cuda import intersect_stream as ist
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 B, N_RAYS, N_FACES = 2, 2048, 300
 

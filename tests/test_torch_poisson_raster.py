@@ -19,7 +19,7 @@ from fireflies_tpu.sampling import poisson as jx_poisson
 from fireflies_tpu_torch import graphics as tc_graphics
 from fireflies_tpu_torch import sampling as tc_sampling
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("radius_type", ["default", "normDist"])

@@ -18,7 +18,7 @@ import torch
 from fireflies_tpu_torch import perf_probe
 from fireflies_tpu_torch.render.cuda import intersect_kernel as ik
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _vpu_rounds_jax(x):

@@ -4,7 +4,11 @@ pair tests found and counted by instruction class and per tested face, for
 the Woop kernels' and the Moller-Trumbore kernels' marks.
 """
 
+import torch
+
 from fireflies_tpu_torch import perf_probe
+
+torch.set_num_threads(1)
 
 
 _SASS = """

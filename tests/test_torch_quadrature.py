@@ -33,7 +33,7 @@ from fireflies_tpu_torch.render.pathtracer import trace_rays
 from fireflies_tpu_torch.render.quadrature import radiance_quadrature
 from fireflies_tpu_torch.render.rays import camera_rays
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 RES = 24
 BUILDERS = {

@@ -40,7 +40,7 @@ from fireflies_tpu_torch.render import rays as tc_rays
 from fireflies_tpu_torch.render import vec3 as tc_vec3
 from fireflies_tpu_torch.utils import math as tc_math
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 N = 256
 

@@ -35,7 +35,7 @@ import torch
 W, H, SEEDS = 128, 16, 8
 SCENE_SEEDS = 64  # the emitter scene's renders in each package
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _build(ff, proc, sampling, look_at_np):

@@ -33,7 +33,7 @@ from fireflies_tpu_torch.render import RenderConfig as TcConfig
 from fireflies_tpu_torch.render import pathtracer as tc_pt
 from fireflies_tpu_torch.render import rays as tc_rays
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W, H = 128, 16
 

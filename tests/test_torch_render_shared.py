@@ -37,7 +37,7 @@ from fireflies_tpu_torch.render import intersect as tc_intersect
 from fireflies_tpu_torch.render import pathtracer as tc_pt
 from fireflies_tpu_torch.render import rays as tc_rays
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W, H = 128, 32
 SEEDS = 4

@@ -20,7 +20,7 @@ from fireflies_tpu_torch.interop import from_jax_params
 from fireflies_tpu_torch.render import pathtracer as tc_pt
 from fireflies_tpu_torch.render import rays as tc_rays
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def test_pattern_step_gradient_is_finite():

@@ -38,7 +38,7 @@ from fireflies_tpu_torch.projection import laser as tc_laser
 from fireflies_tpu_torch.render import pathtracer as tc_pt
 from fireflies_tpu_torch.render import rays as tc_rays
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _texture(laser, beams):

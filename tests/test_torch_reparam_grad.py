@@ -33,7 +33,7 @@ from fireflies_tpu.render.types import Geometry as JxGeometry
 from fireflies_tpu_torch.render import reparam as tc_reparam
 from fireflies_tpu_torch.render import types as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 VERTS = np.array([[-2.0, -2.0, -3.0], [2.0, -2.0, -3.0], [2.0, 2.0, -3.0], [-2.0, 2.0, -3.0],
                   [-0.5, -0.5, -1.5], [0.5, -0.5, -1.5], [0.5, 0.5, -1.5]], np.float32)

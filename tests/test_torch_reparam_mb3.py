@@ -26,7 +26,7 @@ import torch
 
 from fireflies_tpu_torch.main_path import blocker_gradient_samples
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 VARIANTS = 128
 

@@ -42,7 +42,7 @@ from fireflies_tpu_torch.render import rays as tc_rays
 from fireflies_tpu_torch.render import reparam as tc_reparam
 from fireflies_tpu_torch.render import types as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W, H = 128, 32
 FOV, HALF, Z = 60.0, 0.5, -2.0

@@ -32,7 +32,7 @@ from fireflies_tpu_torch.render import integrators as tc_integrators
 from fireflies_tpu_torch.render import reparam as tc_reparam
 from fireflies_tpu_torch.render import types as tc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 FOV = 60.0
 K_AUX, RADIUS = 4, 0.1

@@ -18,7 +18,7 @@ from fireflies_tpu_torch.assets import scenes as tc_scenes
 from fireflies_tpu_torch.interop import from_jax_params
 from fireflies_tpu_torch.render import SceneBridge as TcBridge
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,8 @@ from fireflies_tpu.utils.nurbs import NURBSCurve as JxCurve
 from fireflies_tpu_torch.assets import scenes as tc_scenes
 from fireflies_tpu_torch.utils.nurbs import NURBSCurve as TcCurve
 
+torch.set_num_threads(1)
+
 
 def _same_params(jp: dict, tp: dict, atol: float = 1e-6) -> None:
     assert set(jp) == set(tp)

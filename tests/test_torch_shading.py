@@ -22,7 +22,7 @@ from fireflies_tpu.render import vec3 as jx_vec3
 from fireflies_tpu_torch.render import bsdf as tc_bsdf
 from fireflies_tpu_torch.render import vec3 as tc_vec3
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 N = 4096
 MATERIALS = {

@@ -30,6 +30,8 @@ from fireflies_tpu_torch.sampling import noise_texture_lerp as tc_noise
 from fireflies_tpu_torch.utils import profiling as tc_profiling
 from test_shape_model_lbs import _toy_flame_npz
 
+torch.set_num_threads(1)
+
 
 def test_lbs_and_flame_match_jax(tmp_path):
     path, template = _toy_flame_npz(tmp_path)

@@ -29,7 +29,7 @@ import torch
 from fireflies_tpu.render.pallas import intersect_stream as jx_stream
 from fireflies_tpu_torch.render.cuda import intersect_stream as tc_stream
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 N_RAYS = 4096  # two 2048-ray tiles
 N_MATS = 4

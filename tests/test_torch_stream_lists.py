@@ -22,7 +22,7 @@ from fireflies_tpu_torch.render.cuda import intersect_general_culled as tc_gcull
 from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 from fireflies_tpu_torch.render.cuda import intersect_stream as tc_stream
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

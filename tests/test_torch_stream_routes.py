@@ -15,7 +15,7 @@ from fireflies_tpu_torch.render.cuda import intersect_general_culled as tc_gcull
 from fireflies_tpu_torch.render.cuda import intersect_stream as tc_stream
 from fireflies_tpu_torch.render.types import Geometry
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("route", ["streamed", "general_culled"])

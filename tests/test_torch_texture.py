@@ -39,7 +39,7 @@ from fireflies_tpu_torch.render import texture as tc_texture
 from fireflies_tpu_torch.render import types as tc_types
 from fireflies_tpu_torch.render import vec3 as tc_vec3
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _value_and_vjp(jx_fn, tc_fn, args, weights):

@@ -20,7 +20,7 @@ from test_torch_stream import N_RAYS, ORIGIN, _check, _scene, _t
 from fireflies_tpu.render.pallas import intersect_kernel as jx_kernel
 from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

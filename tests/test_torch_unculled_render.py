@@ -34,7 +34,7 @@ from fireflies_tpu_torch.render.cuda import intersect_kernel as tc_kernel
 from fireflies_tpu_torch.render.cuda import intersect_stream as tc_stream
 from fireflies_tpu_torch.render.types import Geometry
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W, H = 128, 32
 

@@ -15,7 +15,7 @@ from test_torch_stream import N_RAYS, ORIGIN, _check, _scene, _t
 from fireflies_tpu.render.pallas import intersect_stream as jx_stream
 from fireflies_tpu_torch.render.cuda import intersect_stream as tc_stream
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

@@ -9,9 +9,12 @@ still raises ValueError.
 """
 
 import pytest
+import torch
 import yaml
 
 from fireflies_tpu_torch.utils.io import yaml_loads
+
+torch.set_num_threads(1)
 
 DOCS = [
     "- &a x: 1\n  y: 2\n- *a\n",

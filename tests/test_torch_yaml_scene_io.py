@@ -19,6 +19,8 @@ from fireflies_tpu.assets import procedural as jx_procedural
 from fireflies_tpu_torch import scene_io as tc_scene_io
 from fireflies_tpu_torch.utils import io as tc_io
 
+torch.set_num_threads(1)
+
 SCENE_YAML = {
     "camera": {"position": [0, 0.8, 2.5], "look_at": [0, 0, 0], "fov": 45,
                "randomize": {"translate_x": [-0.1, 0.1], "fov": [40, 60]}},
