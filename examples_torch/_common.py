@@ -27,6 +27,25 @@ from fireflies_tpu_torch.utils.seeds import step_seeds  # noqa: E402
 SIZE = int(os.environ.get("EXAMPLE_SIZE", 128))
 N_VARIANTS = int(os.environ.get("EXAMPLE_VARIANTS", 4))
 
+# What each script writes under output/ at the EXAMPLE_* settings in force:
+# (subdirectory, PNG images at least, other files).
+OUTPUTS = {
+    **{name + ".py": (name, N_VARIANTS, ()) for name in (
+        "01_hello_world", "02_general_transformations", "03_parent_child",
+        "04_material_randomization", "05_light_randomization", "06_animation", "06_sampling")},
+    "07_gradient_accumulation.py": ("07_gradient_accumulation", 0, ("result.txt",)),
+    "08_optimization.py": ("08_optimization", 0, ("result.txt",)),
+    "09_point_pattern_optimization.py": ("09_point_pattern_optimization", 2, ("points.npy",)),
+    "10_pattern_creation.py": ("10_pattern_creation", 4, ("laser_smarty.yml",)),
+    "11_domain_specific_pattern_optim.py": ("11_domain_specific_pattern_optim", 3, ()),
+    "12_multichip_scaleout.py": (
+        "12_multichip_scaleout", min(4, int(os.environ.get("EXAMPLE_PER_DEVICE", 2))), ()),
+    "13_warped_area_gradients.py": ("13_warped_area_gradients", 3, ()),
+    "14_analytic_projector.py": ("14_analytic_projector", 3, ("rays.npy",)),
+    "vocalfold_scene.py": ("vocalfold_dataset/images", int(os.environ.get("EXAMPLE_FRAMES", 8)),
+                           ()),
+}
+
 
 def device() -> torch.device:
     """The device FIREFLIES_DEVICE names (default `cuda`)."""

@@ -84,10 +84,12 @@ and kernel.  Every probe uses one variant of the vocalfold scene and
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -524,25 +526,28 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def timed_chain(op, x0: Tensor, n_iter: int, trials: int = 2) -> float:
-    """Seconds per call of `op` (tensor -> tensor of its shape, each call
-    fed the last one's output), the best of `trials` chains of `n_iter`
-    calls after one warm-up call, each chain ending in a host readback of
-    its output's sum (the reference's `timed_scan`)."""
-    best = None
+def timed_chains(ops: dict, x0: Tensor, n_iter: int, trials: int = 2) -> dict:
+    """{name: [seconds per call in each trial]} of each op of `ops` (tensor
+    -> tensor of its shape, each call fed the last one's output): `trials`
+    chains of `n_iter` calls after one warm-up call, each chain ending in a
+    host readback of its output's sum (the reference's `timed_scan`).  The
+    ops take turns chain by chain, so that trial i of every op ran under the
+    same load of the host."""
+    times = {name: [] for name in ops}
     for trial in range(trials + 1):
-        _sync(x0.device)
-        t0 = time.perf_counter()
-        x = x0
-        for _ in range(1 if trial == 0 else n_iter):
-            x = op(x)
-        total = float(x.sum())
-        dt = time.perf_counter() - t0
-        if not math.isfinite(total):
-            raise AssertionError("the step's output is not finite")
-        if trial:
-            best = dt if best is None else min(best, dt)
-    return best / n_iter
+        for name, op in ops.items():
+            _sync(x0.device)
+            t0 = time.perf_counter()
+            x = x0
+            for _ in range(1 if trial == 0 else n_iter):
+                x = op(x)
+            total = float(x.sum())
+            dt = time.perf_counter() - t0
+            if not math.isfinite(total):
+                raise AssertionError(f"the output of {name} is not finite")
+            if trial:
+                times[name].append(dt / n_iter)
+    return times
 
 
 def probe_step(device, size: int = 512, batch: int = 16, n_iter: int = 8, resolution: int = 24,
@@ -551,9 +556,12 @@ def probe_step(device, size: int = 512, batch: int = 16, n_iter: int = 8, resolu
     """The batched step of `main_path` (`pattern_step`: one batched render
     of `batch` vocalfold variants at `resolution`, size x size, and one
     backward to the beams) split by phase: `full`, `fwd_only` (the render
-    without the backward) and `bounces1` (max_bounces 1), each timed as a
-    chain of `n_iter` steps (`timed_chain`), one `step_<name>` row each with
-    ms, renders/s and the share of `full`'s time.  `variants` runs a subset;
+    without the backward) and `bounces1` (max_bounces 1), each timed as
+    `trials` chains of `n_iter` steps, the variants taking turns
+    (`timed_chains`).  One `step_<name>` row each: ms and renders/s of its
+    best chain, the chains' ms (`trials_ms`), and its share of `full`
+    (`frac_of_full`), the median over the trials of its chain's time over
+    `full`'s chain of the same trial.  `variants` runs a subset;
     `full` is always kept, since the shares need it.  The other arguments are
     the reference's FF_PROBE_* settings: spp, coherent bounce, static
     geometry (default the face-table route) and the analytic projector
@@ -570,27 +578,27 @@ def probe_step(device, size: int = 512, batch: int = 16, n_iter: int = 8, resolu
     cfg = main_path.bench_config(size=size, spp=spp, coherent_bounce=coherent,
                                  static_geometry=static_geometry)
     seeds = list(range(batch))
-    base, records = None, []
-    for name, with_grad, bounces in STEP_VARIANTS:
-        if name not in keep:
-            continue
-        cfg_v = cfg.replace(max_bounces=bounces)
 
-        def op(rays, cfg_v=cfg_v, with_grad=with_grad):
-            if with_grad:
-                _, grad = main_path.pattern_step(bridge, randomize, rays, seeds, cfg_v, analytic)
-                return rays + 1e-20 * grad
-            with torch.no_grad():
-                img = main_path.render_batch(bridge, randomize, rays, seeds, cfg_v, analytic)
-                return rays + 1e-20 * img.mean()
+    def op(rays, cfg_v, with_grad):
+        if with_grad:
+            _, grad = main_path.pattern_step(bridge, randomize, rays, seeds, cfg_v, analytic)
+            return rays + 1e-20 * grad
+        with torch.no_grad():
+            img = main_path.render_batch(bridge, randomize, rays, seeds, cfg_v, analytic)
+            return rays + 1e-20 * img.mean()
 
-        dt = timed_chain(op, beams, n_iter, trials)
-        if name == "full":
-            base = dt
+    ops = {name: functools.partial(op, cfg_v=cfg.replace(max_bounces=bounces), with_grad=grad)
+           for name, grad, bounces in STEP_VARIANTS if name in keep}
+    times = timed_chains(ops, beams, n_iter, trials)
+    records = []
+    for name, dts in times.items():
+        dt = min(dts)
+        frac = statistics.median(a / b for a, b in zip(dts, times["full"]))
         records.append(_emit(f"step_{name}", ms=dt * 1e3, renders_s=batch / dt,
-                             frac_of_full=dt / base, size=size, batch=batch, n_iter=n_iter,
-                             faces=len(bridge._faces), spp=spp, coherent=coherent,
-                             static_geometry=static_geometry, analytic=analytic))
+                             frac_of_full=frac, trials_ms=[round(t * 1e3, 4) for t in dts],
+                             size=size, batch=batch, n_iter=n_iter, faces=len(bridge._faces),
+                             spp=spp, coherent=coherent, static_geometry=static_geometry,
+                             analytic=analytic))
     return records
 
 

@@ -12,7 +12,8 @@
     packages estimate the same image;
   * the cheap scripts run in-process on the CPU (FIREFLIES_DEVICE=cpu) at
     EXAMPLE_SIZE 16, 2 variants, 2 steps, 4 frames: each writes its PNGs
-    (or its result file) and every number it prints is finite;
+    and files (examples_torch/_common.py's OUTPUTS) and every number it
+    prints is finite;
   * without a card and without FIREFLIES_DEVICE each script raises before
     it renders; nothing falls back to the CPU;
   * no file of examples_torch/ imports jax, optax or fireflies_tpu, and the
@@ -40,21 +41,12 @@ TWINS = ROOT / "examples_torch"
 SCRIPTS = sorted(p.name for p in (ROOT / "examples").glob("*.py"))
 # The scripts cheap enough for the CPU at EXAMPLE_SIZE 16 (the others train
 # a fixed 150-350 steps: 08, 09 and 13, or render 4 SMARTY depth maps and
-# Bridson at 128x128: 10), and what each writes.
-CHEAP = {
-    "01_hello_world.py": ("01_hello_world", 2),
-    "02_general_transformations.py": ("02_general_transformations", 2),
-    "03_parent_child.py": ("03_parent_child", 2),
-    "04_material_randomization.py": ("04_material_randomization", 2),
-    "05_light_randomization.py": ("05_light_randomization", 2),
-    "06_animation.py": ("06_animation", 2),
-    "06_sampling.py": ("06_sampling", 2),
-    "07_gradient_accumulation.py": ("07_gradient_accumulation", 0),
-    "11_domain_specific_pattern_optim.py": ("11_domain_specific_pattern_optim", 3),
-    "12_multichip_scaleout.py": ("12_multichip_scaleout", 2),
-    "14_analytic_projector.py": ("14_analytic_projector", 3),
-    "vocalfold_scene.py": ("vocalfold_dataset/images", 4),
-}
+# Bridson at 128x128: 10); what each writes is examples_torch/_common.py's
+# OUTPUTS.
+CHEAP = ("01_hello_world.py", "02_general_transformations.py", "03_parent_child.py",
+         "04_material_randomization.py", "05_light_randomization.py", "06_animation.py",
+         "06_sampling.py", "07_gradient_accumulation.py", "11_domain_specific_pattern_optim.py",
+         "12_multichip_scaleout.py", "14_analytic_projector.py", "vocalfold_scene.py")
 NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?|nan|inf", re.IGNORECASE)
 
 
@@ -126,14 +118,15 @@ def test_cheap_examples_run_on_the_cpu(twins, monkeypatch):
                        ("EXAMPLE_FRAMES", "4")):
         monkeypatch.setenv(key, value)
     run, out = twins
-    for name, (subdir, n_png) in CHEAP.items():
+    for name in CHEAP:
         printed = run(name)
         values = [float(x) for x in NUMBER.findall(printed.replace(str(out), ""))]
         assert values and all(math.isfinite(v) for v in values), (name, printed)
+        subdir, n_png, files = sys.modules["_common"].OUTPUTS[name]
         pngs = list((out / subdir).glob("*.png"))
         assert len(pngs) >= n_png, (name, sorted(p.name for p in pngs))
-        if not n_png:
-            assert (out / subdir / "result.txt").read_text().strip(), name
+        for f in files:
+            assert (out / subdir / f).stat().st_size, (name, f)
 
 
 def test_examples_raise_without_a_card(twins, monkeypatch):
@@ -163,3 +156,96 @@ def test_examples_import_no_jax():
                 continue
             for mod in mods:
                 assert mod.split(".")[0] not in banned, (name, mod)
+
+
+def _ex13(package: str, seed: int, dxs: list[float], keys: int, device: str) -> dict:
+    """Example 13 of `package` ("jax": examples/, on the CPU; "torch":
+    examples_torch/, on `device`) with every seed it draws moved by
+    1000 * seed (seed 0 is the script as it stands): the dx its 120 Adam
+    steps recover, then, when `dxs` is given, the mean and standard error
+    over `keys` draws of d loss / d dx at each of `dxs`, the fixed target
+    at 0.3, other draws than its training."""
+    import tempfile
+
+    src = ROOT / ("examples" if package == "jax" else "examples_torch")
+    sys.path.insert(0, str(src))
+    sys.modules.pop("_common", None)
+    if package == "torch":
+        import os
+
+        os.environ["FIREFLIES_DEVICE"] = device
+    mod = _load(src / "13_warped_area_gradients.py", "_ex13")
+    tmp = Path(tempfile.mkdtemp())
+    mod.out_dir = lambda name: tmp
+    if package == "jax":
+        import jax
+        import jax.numpy as jnp
+
+        key = jax.random.key
+        jax.random.key = lambda s: key(s + 1000 * seed)
+    else:
+        from fireflies_tpu_torch.utils.seeds import step_generators
+
+        generator = mod.generator
+        mod.generator = lambda s, dev: generator(s + 1000 * seed, dev)
+        mod.step_generators = lambda s, i, n, dev: step_generators(s + 1000 * seed, i, n, dev)
+    out, held = io.StringIO(), True
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    except AssertionError:
+        held = False
+    finally:
+        if package == "jax":
+            jax.random.key = key
+    (dx,) = re.findall(r"recovered dx=(\S+)", out.getvalue())
+    res = {"package": package, "device": "cpu" if package == "jax" else device, "seed": seed,
+           "dx": float(dx), "assertion_held": held, "witness": []}
+    cfg = mod.RenderConfig(width=mod.RES, height=mod.RES, tri_chunk=16)
+    if package == "jax" and dxs:
+        target = mod.render_depth_reparam(mod.make_scene(jnp.asarray(0.3)), cfg, key(99))
+        grad = jax.jit(jax.grad(lambda dx, k: jnp.mean((mod.render_depth_reparam(
+            mod.make_scene(dx), cfg, k, k_aux=8, radius=0.08) - target) ** 2)))
+    for dx0 in dxs:
+        if package == "jax":
+            gs = [float(grad(jnp.asarray(dx0), jax.random.fold_in(key(7), k)))
+                  for k in range(keys)]
+        else:
+            dev = torch.device(device)
+            with torch.no_grad():
+                target = mod.render_depth_reparam(
+                    mod.make_scene(torch.tensor(0.3, device=dev), dev), cfg, generator(99, dev))
+            gs = []
+            for k in range(keys):
+                dx = torch.tensor(dx0, device=dev, requires_grad=True)
+                depth = mod.render_depth_reparam(mod.make_scene(dx, dev), cfg,
+                                                 step_generators(7, k, 1, dev), k_aux=8,
+                                                 radius=0.08)
+                ((depth - target) ** 2).mean().backward()
+                gs.append(dx.grad.item())
+        res["witness"].append({"dx": dx0, "grad_mean": float(np.mean(gs)),
+                               "grad_se": float(np.std(gs) / math.sqrt(len(gs))), "n": len(gs)})
+    sys.path.remove(str(src))
+    return res
+
+
+if __name__ == "__main__":
+    # The spread of example 13 over seeds, and its gradient's mean near the
+    # target, in either package (the JAX one on the CPU):
+    #   python tests/test_torch_examples.py jax 1 2 3
+    #   python tests/test_torch_examples.py torch --device cuda 0 1 2 3 --witness 0.2,0.25,0.3
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("package", choices=("jax", "torch"))
+    ap.add_argument("seeds", type=int, nargs="+")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--witness", default="", help="comma-separated dx at which to average "
+                    "the gradient (after the first seed's run)")
+    ap.add_argument("--keys", type=int, default=16)
+    args = ap.parse_args()
+    dxs = [float(x) for x in args.witness.split(",") if x]
+    for i, s in enumerate(args.seeds):
+        print(json.dumps(_ex13(args.package, s, dxs if i == 0 else [], args.keys, args.device)),
+              flush=True)
