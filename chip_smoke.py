@@ -49,7 +49,10 @@ animated from OBJ frames, a Perlin texture on the mucosa); both B1 and B3.
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: the card's name and power limit; CUDA must be available;
   2. build: compile the CUDA kernels of fireflies_tpu_torch/csrc from
-     source, one nvcc per source, all started together;
+     source, one nvcc per source, all started together; native: build the
+     host library (fireflies_tpu_torch/native, g++) from its source and
+     hold its Morton order, component count and Bridson spacing against
+     the plain versions;
   then for each path:
   3. kernels: the kernel launches of one forward batch recorded and
      replayed through the kernel and its plain PyTorch version, with times
@@ -109,7 +112,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      `render_depth_reparam` on a translating quad within 15% of the
      analytic boundary flux, on the card alone; one counted pose step (B1
      and B3 only, at the counts `reparam_expected` derives from the code),
-     then s/step and peak memory;
+     then s/step and peak memory; the same step through
+     `reparam_split_value_and_grad`'s phases, its loss within 1e-5 and
+     gradient within 1e-3 relative of the monolithic step's, s/step, peak;
   scene_files (`xml`, then `yaml`; 512x512, batch 16, spp 1, 2 bounces, the
      analytic projector): the host seconds of 3 loads of the scene file;
      every B1 and B3 launch of one forward batch replayed against the plain
@@ -141,7 +146,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      the main shape at `LaserConfig()`'s defaults (150 beams, 16 depth maps
      at 256x256), projector fov 30: GRID, RANDOM, POISSON and SMARTY, each
      counted (SMARTY: one B1 launch, its depth maps in one batch, and no
-     other kernel; the other modes: none), beams finite, unit and forward,
+     other kernel; the other modes: none), POISSON's and SMARTY's Bridson
+     one call each of the native library and their points at Bridson's
+     spacing, beams finite, unit and forward,
      SMARTY's seconds split into depth maps, Bridson (host) and the rest;
      SMARTY on the card against the CPU plain path on the same variants
      at 128x32, 4 maps (depth maps and radius map within 1e-5 relative,
@@ -170,6 +177,12 @@ Phases (each raises on failure, so any failure exits non-zero):
      blocker scene's warped-area gradient and its finite difference over
      8192 variants, each with its standard error: within two combined
      standard errors of each other, the gradient above four of its own;
+  multichip: bench.py's scale-out measurements at world size 1 over NCCL
+     (one rank in this process): `bench.measure_multichip` (its JSON line;
+     its first step's loss within 1e-5 and beam gradient within 1e-3
+     relative L2 of `main_path.pattern_step` over the same generators),
+     then `bench.measure_datagen(multichip=True)` at its full parameters
+     (its JSON line), counted (B1 and B3, no other);
   examples: the 16 scripts of examples_torch/ (the torch twins of
      examples/) on the card at their default sizes, in this process,
      counted (B1 and B3, no other): each ends cleanly, writes its PNGs and
@@ -204,8 +217,8 @@ Then one JSON line with the kernels (each with its fused operations per
 tested pair, `ops_per_pair`, its counted launches on every path that runs
 it, `launches_by_path` (`estimation` for SMARTY's depth maps,
 `estimation_optimize` for the optimizer from its pattern, `odd_film`,
-`bands`, `quadrature` and `parallel` for the films phase, `examples` and
-`step`), and for the
+`bands`, `quadrature` and `parallel` for the films phase, `multichip` for
+the farm over the ranks, `examples` and `step`), and for the
 nine intersection kernels
 `least_pairs` and `least_bound_ms`, and for each path beyond its own that
 replays it (geometry, reference_geometry, materials, emitters, reparam,
@@ -574,6 +587,74 @@ def check_launches(tag: str, launches: dict, expected) -> None:
         raise AssertionError(f"{tag}: a kernel of another route was launched: {launches}")
 
 
+def radius_lookup(radius_map):
+    """Bridson's radius at film points (n, 2) (y, x): the map's pixel,
+    clamped to the film, and at least the map's least radius (1e-3 at
+    least), as the native library reads it."""
+    import numpy as np  # noqa: PLC0415
+
+    h, w = radius_map.shape
+    r_min = max(float(radius_map.min()), 1e-3)
+
+    def at(p):
+        iy = np.minimum(p[:, 0].astype(np.int64), h - 1)
+        ix = np.minimum(p[:, 1].astype(np.int64), w - 1)
+        return np.maximum(radius_map[iy, ix].astype(np.float64), r_min)
+
+    return at
+
+
+def bridson_spacing(points, radius_at) -> float:
+    """The least, over pairs of points (n, 2), of their distance over the
+    smaller of their two radii (`radius_at(points)`): Bridson's rule keeps it
+    at 1 or above."""
+    import numpy as np  # noqa: PLC0415
+
+    p = np.asarray(points, np.float64)
+    r = radius_at(p)
+    d = np.sqrt(((p[:, None] - p[None]) ** 2).sum(-1))
+    np.fill_diagonal(d, np.inf)
+    return float((d / np.minimum(r[:, None], r[None])).min())
+
+
+def native_phase() -> None:
+    """The native host library (`fireflies_tpu_torch/native`): built with
+    g++ from its source in the checkout (or found already built under its
+    hash) and loaded; its Morton order of 5000 centroids equal to the plain
+    version's, its component count of a random mask equal to the flood
+    fill's, and its Bridson on a varying radius map keeping Bridson's
+    spacing."""
+    import numpy as np  # noqa: PLC0415
+
+    from fireflies_tpu_torch import datagen, native, sampling  # noqa: PLC0415
+    from fireflies_tpu_torch.render.cuda import intersect_kernel  # noqa: PLC0415
+
+    cached = native.library_path().exists()
+    t0 = time.perf_counter()
+    native.load_library()
+    log(f"[native] {time.perf_counter() - t0:.2f} s -> {native.library_path().name}"
+        + (" (already built)" if cached else f" ({native.CXX} {' '.join(native.CXX_FLAGS)})"))
+    rng = np.random.default_rng(0)
+    centroids = rng.normal(size=(5000, 3)).astype(np.float32)
+    mask = rng.random((256, 256)) > 0.55
+    yy, xx = np.mgrid[0:128, 0:128]
+    radius_map = (2.0 + 6.0 * (0.5 + 0.5 * np.sin(xx / 13.0) * np.cos(yy / 9.0))).astype(
+        np.float32)
+    native.reset_calls()
+    same_order = np.array_equal(native.morton_order(centroids),
+                                intersect_kernel.morton_order(centroids))
+    n_cc, n_plain = datagen.connected_components(mask), datagen.connected_components_plain(mask)
+    n, pts = sampling.bridson(radius_map, k=30, seed=0)
+    spacing = bridson_spacing(pts, radius_lookup(radius_map))
+    log(f"[native] Morton order of 5000 centroids equal to the plain version's: {same_order}; "
+        f"components {n_cc} against the flood fill's {n_plain}; Bridson {n} points on a 128^2 "
+        f"map of radii 2-8, least distance over the smaller radius {spacing:.6f}; calls "
+        f"{native.calls}")
+    if not (same_order and n_cc == n_plain and n > 100 and spacing >= 1.0 - 1e-5
+            and native.calls["bridson"] == native.calls["connected_components"] == 1):
+        raise AssertionError("native: the host library disagrees with its plain versions")
+
+
 def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected,
                   analytic: bool = True) -> dict:
     """One counted forward batch (every counter set to 0 just before, read
@@ -821,7 +902,10 @@ def reparam_phase(dev, seeds) -> tuple[dict, dict]:
       (d) one counted `main_path.pose_step` (every counter set to 0 just
           before, read just after): B1 and B3 only, at the counts
           `reparam_expected` derives; then a timed step, s/step and peak
-          memory.
+          memory;
+      (e) the same step through `reparam_split_value_and_grad`'s phases
+          (`pose_step(split=True)`): the loss within 1e-5 and the gradient
+          within 1e-3 relative (L2) of (d)'s, s/step and peak memory.
     The variants: the first REPARAM_BATCH of `seeds`.  Returns (the
     replays, the counted step's launches)."""
     import torch  # noqa: PLC0415
@@ -953,6 +1037,23 @@ def reparam_phase(dev, seeds) -> tuple[dict, dict]:
     if (tuple(grad.shape) != (3,) or not torch.isfinite(grad).all() or grad.abs().max() == 0
             or not torch.isfinite(loss)):
         raise AssertionError("reparam: the translation gradient is not a finite nonzero (3,)")
+
+    # (e) the split pipeline (reparam_split_value_and_grad) against that step.
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_s, grad_s = main_path.pose_step(bridge, randomize, beams, delta, seeds, targets, cfg,
+                                         render_seeds=render_seeds, split=True)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    peak_s = torch.cuda.max_memory_allocated(dev) / 2**30
+    loss_rel = abs(loss_s.item() - loss.item()) / abs(loss.item())
+    g_rel = float((grad_s - grad).norm() / grad.norm())
+    log(f"[reparam/split] reparam_split_value_and_grad: loss {loss_s.item():.8g} ({loss_rel:.3g} "
+        f"relative to the monolithic step's), grad {grad_s.tolist()} ({g_rel:.3g} relative L2); "
+        f"{split_s:.4f} s/step against {step_s:.4f}, peak {peak_s:.3f} GiB against {peak:.3f}")
+    if not (loss_rel <= 1e-5 and g_rel <= 1e-3):
+        raise AssertionError("reparam: the split pipeline disagrees with the monolithic step")
     return res, counts
 
 
@@ -1208,6 +1309,66 @@ def parallel_phase(dev, seeds) -> dict:
             if out["n"] != PARALLEL_FRAMES or written != PARALLEL_FRAMES:
                 raise AssertionError("parallel: generate_dataset_parallel wrote the wrong count")
             check_launches("parallel", counts, (B1, B3))
+        finally:
+            dist.destroy_process_group()
+    return counts
+
+
+def multichip_phase(dev) -> dict:
+    """bench.py's scale-out measurements (`bench.measure_multichip` and
+    `bench.measure_datagen(multichip=True)`) over NCCL at world size 1: one
+    rank in this process (the group from a FileStore in a temporary
+    directory), since the script needs one card; `bench --multichip`
+    starts one rank a visible card by itself on a machine with more.
+    measure_multichip at 512^2, BATCH variants a rank, BENCH_REPEATS steps
+    in BENCH_TRIALS windows (its JSON line printed), its untimed first
+    step's loss within 1e-5 relative and its beam gradient within 1e-3
+    relative L2 (the on-card gradient rule) of `main_path.pattern_step`
+    over the same generators; then the farm form at its full parameters
+    (512^2, spp 4, 8 frames a rank a dispatch, 32 accepted frames; its
+    JSON line printed), counted: B1 and B3 and no other.  Returns the
+    farm's launches."""
+    import os  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    import torch  # noqa: PLC0415
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from fireflies_tpu_torch import bench, main_path, parallel  # noqa: PLC0415
+    from fireflies_tpu_torch.utils.seeds import step_seeds  # noqa: PLC0415
+
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.init_distributed(0, 1, dev, store_path=os.path.join(tmp, "store"))
+        try:
+            t0 = time.perf_counter()
+            line = bench.measure_multichip(size=SIZE, repeats=BENCH_REPEATS,
+                                           trials=BENCH_TRIALS, batch_per_chip=BATCH,
+                                           first_step=True, device=dev)
+            first = line["detail"].pop("first_step")
+            log(f"[multichip] measure_multichip: {time.perf_counter() - t0:.1f} s")
+            print(json.dumps(line), flush=True)
+            bridge, randomize, beams, cfg = main_path.build_shape("main", dev, SIZE)
+            loss, grad = main_path.pattern_step(bridge, randomize, beams,
+                                                step_seeds(first["seed"], 0, BATCH), cfg)
+            got = torch.tensor(first["grad"], device=dev)
+            loss_rel = abs(first["loss"] - loss.item()) / abs(loss.item())
+            g_rel = float((got - grad).norm() / grad.norm())
+            log(f"[multichip/check] first step of {BATCH} variants: loss {first['loss']:.8g} "
+                f"against pattern_step's {loss.item():.8g} ({loss_rel:.3g} relative), beam "
+                f"gradient {g_rel:.3g} relative L2")
+            if not (line["value"] > 0 and loss_rel <= 1e-5 and g_rel <= 1e-3
+                    and grad.abs().max() > 0):
+                raise AssertionError("multichip: the data-parallel step differs from one "
+                                     "process's")
+            out = {}
+            t0 = time.perf_counter()
+            counts = count_launches(lambda: out.update(line=bench.measure_datagen(
+                multichip=True, device=dev)))
+            log(f"[multichip/datagen] {time.perf_counter() - t0:.1f} s; launches {counts}")
+            print(json.dumps(out["line"]), flush=True)
+            check_launches("multichip datagen", counts, (B1, B3))
+            if out["line"]["detail"]["frames_accepted"] < 32:
+                raise AssertionError("multichip: the farm accepted too few frames")
         finally:
             dist.destroy_process_group()
     return counts
@@ -1859,7 +2020,12 @@ def estimation_phase(dev) -> tuple[dict, dict]:
       1. each of GRID, RANDOM, POISSON and SMARTY once, with every counter
          set to 0 just before and read just after: the beams finite, unit
          (1e-5) and forward (z < 0); SMARTY launches B1 once (its depth
-         maps in one batch) and no other kernel, the other modes none; then
+         maps in one batch) and no other kernel, the other modes none;
+         POISSON's and SMARTY's Bridson draws each one call of the native
+         library (`native.calls`), the others none, and their points keep
+         Bridson's spacing (no two closer than the smaller of their two
+         radii, to 1e-4: POISSON's beams mapped back onto the film, SMARTY's
+         points against its radius map); then
          a second SMARTY run's seconds split into depth maps (the variants
          and their render, to the device's end), Bridson (host) and the
          rest; that run's B1 launch replayed through the kernel and its
@@ -1882,10 +2048,12 @@ def estimation_phase(dev) -> tuple[dict, dict]:
     Returns (the replay's results, SMARTY's launches, the optimizer's)."""
     import torch  # noqa: PLC0415
 
-    from fireflies_tpu_torch import main_path, optim  # noqa: PLC0415
+    import numpy as np  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path, native, optim  # noqa: PLC0415
     from fireflies_tpu_torch.estimation import LaserConfig, initialize_laser  # noqa: PLC0415
     from fireflies_tpu_torch.estimation import laser_estimation  # noqa: PLC0415
-    from fireflies_tpu_torch.projection.camera import Camera  # noqa: PLC0415
+    from fireflies_tpu_torch.projection.camera import Camera, directions_to_ndc  # noqa: PLC0415
     from fireflies_tpu_torch.projection.laser import Laser  # noqa: PLC0415
 
     cpu = torch.device("cpu")
@@ -1897,16 +2065,35 @@ def estimation_phase(dev) -> tuple[dict, dict]:
 
     # 1. the four modes, counted.
     smarty = {}
+    w, h = config.image_size
     for mode in ("GRID", "RANDOM", "POISSON", "SMARTY"):
         out = {}
+        native.reset_calls()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         counts = count_launches(lambda: out.update(laser=initialize_laser(
             scene, bridge, config, mode=mode, projector_fov=fov, device=dev, info=smarty)))
         secs = time.perf_counter() - t0
         rays = out["laser"].local_rays()
+        drawn = native.calls["bridson"]
+        spacing = None
+        if mode == "POISSON":  # the beams back on the film, at the constant radius
+            ndc = directions_to_ndc(rays, fov).double().cpu().numpy()
+            radius = math.sqrt(w * h / (math.pi * config.n_beams)) * 1.25
+            spacing = bridson_spacing(np.stack([(ndc[:, 1] + 1) / 2 * h,
+                                                (ndc[:, 0] + 1) / 2 * w], 1),
+                                      lambda p: np.full(len(p), radius))
+        elif mode == "SMARTY":
+            spacing = bridson_spacing(smarty["points"],
+                                      radius_lookup(smarty["radius_map"].cpu().numpy()))
         log(f"[estimation/{mode}] {rays.shape[0]} beams in {secs:.4f} s; launches "
-            f"{ {k: v for k, v in counts.items() if v} }")
+            f"{ {k: v for k, v in counts.items() if v} }; native Bridson calls {drawn}"
+            + ("" if spacing is None else f", its points' least distance over the smaller of "
+               f"their radii {spacing:.6f}"))
+        if drawn != (mode in ("POISSON", "SMARTY")):
+            raise AssertionError(f"estimation/{mode}: {drawn} calls of the native Bridson")
+        if spacing is not None and not spacing >= 1.0 - 1e-4:
+            raise AssertionError(f"estimation/{mode}: two points closer than their radii")
         _unit_forward(f"estimation/{mode}", rays)
         if mode == "SMARTY":
             check_launches("estimation/SMARTY", counts, (B1,))
@@ -2260,6 +2447,8 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or line.startswith("=="):
             log("  " + line.strip())
 
+    native_phase()
+
     seeds = list(range(BATCH))
     kres, launches, kernel_path, path_launches = {}, {}, {}, {}
     # (shape in main_path.SHAPES, kernels of the path, the launches replayed
@@ -2352,6 +2541,10 @@ def main() -> int:
     kres.update(res)
     path_launches.update(counts)
     log(f"[films] {time.perf_counter() - t_films:.1f} s")
+
+    t_multi = time.perf_counter()
+    path_launches["multichip"] = multichip_phase(dev)
+    log(f"[multichip] {time.perf_counter() - t_multi:.1f} s")
 
     t_ex = time.perf_counter()
     res, path_launches["examples"] = examples_phase(dev)

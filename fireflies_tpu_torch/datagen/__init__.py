@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
+from fireflies_tpu_torch import native
 from fireflies_tpu_torch.utils.png import write_png
 from fireflies_tpu_torch.utils.seeds import step_seeds
 
@@ -28,8 +29,12 @@ Tensor = torch.Tensor
 
 
 def connected_components(mask: np.ndarray) -> int:
-    """Number of 4-connected components of a binary mask
-    (`scipy.ndimage.label`'s default structure)."""
+    """Number of 4-connected components of a binary mask: the native
+    library's flood fill (`native.connected_components`), as in the JAX
+    package, or under FIREFLIES_NO_NATIVE=1 `scipy.ndimage.label` with its
+    default (4-connected) structure."""
+    if native.enabled():
+        return native.connected_components(mask)
     return int(ndimage.label(np.asarray(mask, bool))[1])
 
 

@@ -188,7 +188,8 @@ def initialize_laser(scene, bridge, config: LaserConfig, mode: str = "GRID",
       bridge: its SceneBridge (SMARTY renders depth maps through it).
       config: LaserConfig.
       mode: "RANDOM" (config.n_beams uniform NDC points from `gen`),
-        "POISSON" (Poisson-disk over config.image_size, numpy seed 0),
+        "POISSON" (Poisson-disk over config.image_size, `sampling.bridson`
+        seeded 0),
         "GRID" (floor(sqrt(n_beams))^2 cell centres) or "SMARTY".
       gen: torch.Generator on `device` for RANDOM's points and SMARTY's
         variants (default: seeded 0).
@@ -200,7 +201,8 @@ def initialize_laser(scene, bridge, config: LaserConfig, mode: str = "GRID",
         variant i of the depth maps is randomized at step i from a
         generator seeded from `gen` (`integrators.random_depth_maps`, one
         batched render), the reference at step 0 from a generator seeded 0.
-      info: filled by SMARTY with its intermediate maps and the seconds of
+      info: filled by SMARTY with its intermediate maps, Bridson's points
+        ("points", (n, 2) float64 (y, x) on the film) and the seconds of
         its parts: "depth_maps_s" (the variants and their render, to the
         device's end), "bridson_s" (host) and "total_s".
     """
@@ -270,9 +272,9 @@ def _initialize_smarty(scene, bridge, config: LaserConfig, gen, projector_fov: f
         config.smarty_max_radius - config.smarty_min_radius) * inv
     radius_np = radius_map.cpu().numpy()
     t1 = time.perf_counter()
-    _, pts = sampling.bridson(radius_np, k=50, seed=0)
+    _, points = sampling.bridson(radius_np, k=50, seed=0)
     t_bridson = time.perf_counter() - t1
-    pts = np.floor(pts).astype(np.int64)
+    pts = np.floor(points).astype(np.int64)
     pts[:, 0] = np.clip(pts[:, 0], 0, render_config.height - 1)
     pts[:, 1] = np.clip(pts[:, 1], 0, render_config.width - 1)
     pts = pts[constraint[pts[:, 0], pts[:, 1]] > 0]
@@ -301,7 +303,7 @@ def _initialize_smarty(scene, bridge, config: LaserConfig, gen, projector_fov: f
     local_dir = ffmath.transform_directions(laser_dir_world, torch.linalg.inv(laser_world))
     rays = ffmath.normalize_vectors(local_dir)
     info.update(depth_maps=depth_maps, variance_map=variance_map, constraint=constraint,
-                radius_map=radius_map, chosen=chosen, mean_depth=mean_depth,
+                radius_map=radius_map, points=points, chosen=chosen, mean_depth=mean_depth,
                 camera=ref_scene.camera, laser_world=laser_world,
                 depth_maps_s=t_maps - t0, bridson_s=t_bridson, total_s=time.perf_counter() - t0)
     return rays

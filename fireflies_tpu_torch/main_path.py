@@ -79,6 +79,7 @@ from fireflies_tpu_torch.render import (
     render_rgb,
     render_segmentation,
 )
+from fireflies_tpu_torch.render.reparam import reparam_split_value_and_grad
 from fireflies_tpu_torch.render.soft import render_soft_silhouette
 from fireflies_tpu_torch.render.types import Camera, Geometry, Lights, Materials, RenderScene
 from fireflies_tpu_torch.utils import io as ffio
@@ -259,7 +260,7 @@ def pose_targets(bridge: SceneBridge, randomize, beams: Tensor, seeds, cfg: Rend
 
 def pose_step(bridge: SceneBridge, randomize, beams: Tensor, delta: Tensor, seeds, targets,
               cfg: RenderConfig, soft_size: int = SOFT_SIZE,
-              render_seeds=None) -> tuple[Tensor, Tensor]:
+              render_seeds=None, split: bool = False) -> tuple[Tensor, Tensor]:
     """The pose objective and its gradient with respect to the (3,)
     translation `delta`, in one batched render and one backward, as the
     loss of the reference's `bench.py::_measure_pose`: `optim.hybrid_pose_loss`
@@ -268,11 +269,22 @@ def pose_step(bridge: SceneBridge, randomize, beams: Tensor, delta: Tensor, seed
     or under `cfg.reparam` `optim.image_l2` alone (the `pose_reparam`
     row: the render's warped-area pass carries the boundary gradients).
     Variants and draws as `pose_scene` makes them.  `cfg.static_geometry`
-    must be False, or the vertices get no gradient."""
+    must be False, or the vertices get no gradient.  `split` (with
+    `cfg.reparam`) computes the same loss and gradient with
+    `reparam_split_value_and_grad`'s phases."""
     if cfg.static_geometry:
         raise ValueError("pose_step needs RenderConfig(static_geometry=False)")
-    delta = delta.detach().requires_grad_(True)
     tgt_img, tgt_mask = targets
+    if split:
+        if not cfg.reparam:
+            raise ValueError("pose_step(split=True) needs RenderConfig(reparam=True)")
+        gens = (generators(render_seeds, beams.device) if render_seeds is not None
+                else pose_scene(bridge, randomize, beams, delta, seeds)[1])
+        step = reparam_split_value_and_grad(
+            lambda d: pose_scene(bridge, randomize, beams, d, seeds)[0],
+            lambda img: image_l2(img, tgt_img), gens, cfg)
+        return step(delta.detach())
+    delta = delta.detach().requires_grad_(True)
     scene, gens = pose_scene(bridge, randomize, beams, delta, seeds, render_seeds)
     img = render_rgb(scene, gens, cfg)
     if cfg.reparam:

@@ -40,7 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fireflies_tpu_torch.render.cuda.intersect_kernel import morton_order
+from fireflies_tpu_torch import native
+from fireflies_tpu_torch.render.cuda import intersect_kernel
 from fireflies_tpu_torch.render.types import (
     LIGHT_POINT,
     LIGHT_SPOT,
@@ -152,10 +153,13 @@ class SceneBridge:
         self._smooth_mask = mask if mask.any() else None
 
         # Morton order by rest-pose centroid, within each mesh (meshes often
-        # interleave in space, e.g. a tube around the folds).
+        # interleave in space, e.g. a tube around the folds): the native
+        # library's, as in the JAX package, or its plain version under
+        # FIREFLIES_NO_NATIVE=1.
         rest_verts = np.concatenate(
             [m.get_vertices() + m._centroid[None, :] for m in scene.meshes()])
         centroids = rest_verts[self._faces].mean(axis=1)
+        morton_order = native.morton_order if native.enabled() else intersect_kernel.morton_order
         order = np.arange(len(self._faces))
         for mi in range(len(scene.meshes())):
             sel = np.where(self._face_mesh == mi)[0]

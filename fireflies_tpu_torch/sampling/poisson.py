@@ -1,12 +1,14 @@
 """Blue-noise point generation (port of fireflies_tpu/sampling/poisson.py).
 
 * ``bridson(radius_map, k, seed, radius_type)``: Bridson (2007)
-  Poisson-disk sampling with a per-pixel radius map, on the host in numpy
-  from ``np.random.default_rng(seed)``.  It is inherently sequential and
-  runs once, at pattern initialization.  The JAX package takes a native
-  C++ path (std::mt19937_64) where its extension loads; this port keeps
-  only the numpy path, so its points are the JAX package's numpy path's,
-  bit for bit.
+  Poisson-disk sampling with a per-pixel radius map, on the host.  It is
+  inherently sequential and runs once, at pattern initialization.  As in
+  the JAX package, the "default" radius type takes the native library
+  (`native.bridson`, std::mt19937_64 seeded ``seed or 0``), so its points
+  are the JAX package's default points, bit for bit; "normDist", and
+  every radius type under FIREFLIES_NO_NATIVE=1, takes the numpy version
+  (`_bridson_numpy`, numpy's generator seeded ``seed``), the JAX package's
+  numpy path's points, bit for bit.
 
 * ``dart_throwing(gen, n_points, radius, ...)``: fixed-size approximate
   blue noise: uniform candidates accepted greedily, in order, when at least
@@ -17,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fireflies_tpu_torch import native
 
 Tensor = torch.Tensor
 
@@ -29,9 +33,10 @@ def bridson(radius_map: np.ndarray, k: int = 30, seed: int | None = None,
       radius_map: (H, W) minimum distance at each location; a constant map
         gives classic Poisson-disk sampling.
       k: candidate attempts around an active point.
-      seed: numpy seed.
-      radius_type: "default" draws a candidate's distance from U(r, 2r);
-        "normDist" from N(1.5 r, 0.2 r), a more regular spacing.
+      seed: the seed (None: 0 on the native path, fresh entropy on numpy's).
+      radius_type: "default" draws a candidate's distance from U(r, 2r)
+        (the native library unless FIREFLIES_NO_NATIVE is set);
+        "normDist" from N(1.5 r, 0.2 r), a more regular spacing (numpy).
 
     Returns:
       (n, coords): the number of points and an (n, 2) float64 array of
@@ -39,6 +44,14 @@ def bridson(radius_map: np.ndarray, k: int = 30, seed: int | None = None,
     """
     if radius_type not in ("default", "normDist"):
         raise ValueError(f"radius_type must be 'default' or 'normDist', got {radius_type!r}")
+    if radius_type == "default" and native.enabled():
+        return native.bridson(np.asarray(radius_map, np.float32), k, seed or 0)
+    return _bridson_numpy(radius_map, k, seed, radius_type)
+
+
+def _bridson_numpy(radius_map: np.ndarray, k: int = 30, seed: int | None = None,
+                   radius_type: str = "default") -> tuple[int, np.ndarray]:
+    """bridson's plain version, from np.random.default_rng(seed)."""
     rng = np.random.default_rng(seed)
     radius_map = np.asarray(radius_map, np.float64)
     height, width = radius_map.shape

@@ -29,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
+from fireflies_tpu_torch import native
 from fireflies_tpu_torch.utils.nurbs import NURBSCurve
 
 # ---------------------------------------------------------------------------
@@ -642,7 +643,16 @@ def load_obj(path: str | os.PathLike) -> dict:
     """OBJ loader: vertices (V, 3) float32; faces (F, 3) int32 (quads and
     n-gons fan-triangulated, negative indices counted from the end); uvs
     (T, 2) float32 or None; face_uvs (F, 3) int32 indices into uvs, or
-    None unless every face has them; normals (N, 3) float32 or None."""
+    None unless every face has them; normals (N, 3) float32 or None.
+    Parsed by the native library (`native.parse_obj`), as in the JAX
+    package, or under FIREFLIES_NO_NATIVE=1 by `_load_obj_python`."""
+    if native.enabled():
+        return native.parse_obj(str(path))
+    return _load_obj_python(path)
+
+
+def _load_obj_python(path: str | os.PathLike) -> dict:
+    """load_obj's plain Python parser."""
     vertices: list[list[float]] = []
     uvs: list[list[float]] = []
     normals: list[list[float]] = []

@@ -8,7 +8,7 @@ stand on, on the same inputs as the JAX package:
   * `Camera`: accessors, keys, the projection matrix, `world` with and
     without randomized params, `origin`, `points_to_ndc` / `pointsToNDC`;
   * `Laser`: the generators (by count; random with the JAX draws given as
-    `ndc`; Poisson-disk with the numpy Bridson on both sides), world rays,
+    `ndc`; Poisson-disk with each package's default, native Bridson), world rays,
     NDC round trips, epipolar segments and their rendered lines (1e-6);
   * `Laser.save` / `load` across the packages, both directions.
 """
@@ -20,9 +20,7 @@ import torch
 
 import fireflies_tpu as ff
 from fireflies_tpu import projection as jx_projection
-from fireflies_tpu import sampling as jx_sampling
 from fireflies_tpu.projection import laser as jx_laser
-from fireflies_tpu.sampling import poisson as jx_poisson
 from fireflies_tpu.utils import intersections as jx_isect
 from fireflies_tpu.utils import math as jx_math
 from fireflies_tpu_torch.entity.transformable import Transformable
@@ -127,7 +125,6 @@ def test_camera_matches():
 
 
 def test_laser_generators_and_epipolar_lines_match(monkeypatch):
-    monkeypatch.setattr(jx_sampling, "bridson", jx_poisson._bridson_numpy)
     fov = 25.0
     by_count = tc_laser.generate_uniform_rays_by_count(4, 3, fov, device="cpu")
     _close(by_count, jx_laser.generate_uniform_rays_by_count(4, 3, fov))

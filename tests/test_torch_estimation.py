@@ -5,15 +5,14 @@ sampling film:
   * GRID within 1e-6 of the reference's beams;
   * RANDOM with the reference's draws given to `generate_random_rays`
     (1e-6);
-  * POISSON with the numpy Bridson on both sides (the JAX package takes its
-    native generator where it loads, another random stream): the same
-    beams (1e-6);
+  * POISSON with each package's default Bridson (the native library's
+    std::mt19937_64 stream on both sides): the same beams (1e-6);
   * SMARTY on the reference's randomized variants (carried over with
     `interop.from_jax_params`): the depth maps within 1e-5 relative with
     the same hit mask; from the reference's maps on, Bridson's radius map
-    within 1e-5 relative, the numpy Bridson on both sides placing the same
-    points (1e-4 px) in the same pixels, and the beams through the chosen
-    pixels within 1e-5.
+    within 1e-5 relative, each package's default (native) Bridson placing
+    the same points (1e-4 px) in the same pixels, and the beams through
+    the chosen pixels within 1e-5.
 """
 
 import jax
@@ -27,7 +26,6 @@ from fireflies_tpu.estimation import laser_estimation as jx_le
 from fireflies_tpu.render import RenderConfig as JxConfig
 from fireflies_tpu.render import SceneBridge as JxBridge
 from fireflies_tpu.render import integrators as jx_int
-from fireflies_tpu.sampling import poisson as jx_poisson
 from fireflies_tpu_torch import sampling as tc_sampling
 from fireflies_tpu_torch.assets import scenes as tc_scenes
 from fireflies_tpu_torch.estimation import LaserConfig, initialize_laser
@@ -60,7 +58,6 @@ def _close(got, ref, tol):
 @pytest.mark.parametrize("mode", ["GRID", "RANDOM", "POISSON"])
 def test_initialize_laser_matches(mode, scenes, monkeypatch):
     jscene, jbridge, tscene, tbridge = scenes
-    monkeypatch.setattr(jx_sampling, "bridson", jx_poisson._bridson_numpy)
     # The reference's RANDOM draws (its default key, laser.py's uniform).
     ndc = np.asarray(jax.random.uniform(jax.random.key(0), (CFG["n_beams"], 2), minval=-1.0,
                                         maxval=1.0))
@@ -72,7 +69,7 @@ def test_initialize_laser_matches(mode, scenes, monkeypatch):
     got = initialize_laser(tscene, tbridge, LaserConfig(**CFG), mode=mode, projector_fov=25.0,
                            device="cpu")
     assert got.fov() == 25.0 and got.transformable() is tscene.projector()
-    assert got.local_rays().shape[0] == {"GRID": 36, "RANDOM": 40}.get(mode, 58)
+    assert got.local_rays().shape[0] == {"GRID": 36, "RANDOM": 40}.get(mode, 56)
     _close(got.local_rays(), ref.local_rays(), 1e-6)
 
 
@@ -87,7 +84,7 @@ def _recorder(fn, calls):
 def test_smarty_matches(scenes, monkeypatch):
     jscene, jbridge, tscene, tbridge = scenes
     maps_ref, bridson_ref, bridson_got = [], [], []
-    monkeypatch.setattr(jx_sampling, "bridson", _recorder(jx_poisson._bridson_numpy, bridson_ref))
+    monkeypatch.setattr(jx_sampling, "bridson", _recorder(jx_sampling.bridson, bridson_ref))
     monkeypatch.setattr(tc_sampling, "bridson", _recorder(tc_sampling.bridson, bridson_got))
     monkeypatch.setattr(jx_int, "random_depth_maps", _recorder(jx_int.random_depth_maps, maps_ref))
     rcfg = dict(width=W, height=H, spp=1, max_bounces=1)

@@ -19,14 +19,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from fireflies_tpu import sampling as jx_sampling
 from fireflies_tpu.assets import scenes as jx_scenes
 from fireflies_tpu.estimation import laser_estimation as jx_le
 from fireflies_tpu.render import RenderConfig as JxConfig
 from fireflies_tpu.render import SceneBridge as JxBridge
 from fireflies_tpu.render import integrators as jx_int
 from fireflies_tpu.render.types import Camera as JxCamera
-from fireflies_tpu.sampling import poisson as jx_poisson
 from fireflies_tpu.utils import math as jx_math
 from fireflies_tpu_torch.assets import scenes as tc_scenes
 from fireflies_tpu_torch.estimation import laser_estimation as tc_le
@@ -103,7 +101,6 @@ def test_smarty_mean_depth_with_misses_matches(monkeypatch, tmp_path):
     maps = rng.uniform(1.5, 2.2, (3, H, W)).astype(np.float32)
     maps[:, :, :10] = 0.0  # the film's left edge misses in every map
     maps[1, 20:, 60:70] = 0.0
-    monkeypatch.setattr(jx_sampling, "bridson", jx_poisson._bridson_numpy)
     monkeypatch.setattr(jx_int, "random_depth_maps", lambda *a, **k: jnp.asarray(maps))
     monkeypatch.setattr(tc_int, "render_depth", lambda *a, **k: torch.from_numpy(maps))
 

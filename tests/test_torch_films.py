@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from fireflies_tpu import sampling as jx_sampling
 from fireflies_tpu.assets import scenes as jx_scenes
 from fireflies_tpu.estimation import laser_estimation as jx_le
 from fireflies_tpu.projection import laser as jx_laser
@@ -36,7 +35,6 @@ from fireflies_tpu.render import integrators as jx_int
 from fireflies_tpu.render import intersect as jx_intersect
 from fireflies_tpu.render import pathtracer as jx_pt
 from fireflies_tpu.render import rays as jx_rays
-from fireflies_tpu.sampling import poisson as jx_poisson
 from fireflies_tpu_torch import main_path
 from fireflies_tpu_torch.assets import scenes as tc_scenes
 from fireflies_tpu_torch.estimation import LaserConfig, initialize_laser
@@ -171,7 +169,6 @@ def test_smarty_at_100x100(monkeypatch):
     draw = jx_int.random_depth_maps
     monkeypatch.setattr(jx_int, "random_depth_maps",
                         lambda *a, **k: maps_ref.append(draw(*a, **k)) or maps_ref[-1])
-    monkeypatch.setattr(jx_sampling, "bridson", jx_poisson._bridson_numpy)
     rcfg = dict(width=100, height=100, spp=1, max_bounces=1)
     jx_le.initialize_laser(jscene, jbridge, jx_le.LaserConfig(**cfg), mode="SMARTY",
                            key=jax.random.key(0), render_config=JxConfig(**rcfg))

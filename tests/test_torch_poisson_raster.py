@@ -1,8 +1,10 @@
 """Port parity for the blue-noise samplers (`sampling/poisson.py`) and the
 rest of the rasterizers (`graphics/rasterization.py`):
 
-  * `bridson` with both radius types equals the JAX package's numpy path
-    (`_bridson_numpy`) bit for bit on a varying radius map;
+  * `bridson`'s numpy version (`_bridson_numpy`) with both radius types
+    equals the JAX package's bit for bit on a varying radius map, and so
+    does `bridson` itself, each package's default (the native library for
+    "default", numpy for "normDist");
   * `dart_throwing` fed the JAX package's candidates accepts the same
     points (equal) and the same valid mask;
   * `rasterize_lines`, `rasterize_depth`, `rasterize_points_in_non_ndc`,
@@ -18,6 +20,7 @@ from fireflies_tpu.graphics import rasterization as jx_raster
 from fireflies_tpu.sampling import poisson as jx_poisson
 from fireflies_tpu_torch import graphics as tc_graphics
 from fireflies_tpu_torch import sampling as tc_sampling
+from fireflies_tpu_torch.sampling import poisson as tc_poisson
 
 torch.set_num_threads(1)
 
@@ -28,9 +31,13 @@ def test_bridson_matches_numpy_path(radius_type):
     yy, xx = np.mgrid[0:48, 0:64]
     radius_map = (2.0 + 4.0 * (0.5 + 0.5 * np.sin(xx / 9.0) * np.cos(yy / 7.0))
                   + rng.uniform(0, 0.3, (48, 64))).astype(np.float32)
-    n, pts = tc_sampling.bridson(radius_map, k=30, seed=3, radius_type=radius_type)
+    n, pts = tc_poisson._bridson_numpy(radius_map, k=30, seed=3, radius_type=radius_type)
     n_ref, pts_ref = jx_poisson._bridson_numpy(radius_map, k=30, seed=3,
                                                radius_type=radius_type)
+    assert n == n_ref > 40 and pts.shape == (n, 2)
+    np.testing.assert_array_equal(pts, pts_ref)
+    n, pts = tc_sampling.bridson(radius_map, k=30, seed=3, radius_type=radius_type)
+    n_ref, pts_ref = jx_poisson.bridson(radius_map, k=30, seed=3, radius_type=radius_type)
     assert n == n_ref > 40 and pts.shape == (n, 2)
     np.testing.assert_array_equal(pts, pts_ref)
     with pytest.raises(ValueError):
