@@ -113,7 +113,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      analytic boundary flux, on the card alone; one counted pose step (B1
      and B3 only, at the counts `reparam_expected` derives from the code),
      then s/step and peak memory; the same step through
-     `reparam_split_value_and_grad`'s phases, its loss within 1e-5 and
+     `reparam_split_value_and_grad`, its loss within 1e-5 and
      gradient within 1e-3 relative of the monolithic step's, s/step, peak;
   scene_files (`xml`, then `yaml`; 512x512, batch 16, spp 1, 2 bounces, the
      analytic projector): the host seconds of 3 loads of the scene file;
@@ -623,11 +623,18 @@ def native_phase() -> None:
     hash) and loaded; its Morton order of 5000 centroids equal to the plain
     version's, its component count of a random mask equal to the flood
     fill's, and its Bridson on a varying radius map keeping Bridson's
-    spacing."""
+    spacing.  Then each of the four functions timed against its plain
+    version on the same input (the best of 3 calls on the host): the Morton
+    order of 5000 and 200000 centroids, a 256x256 grid OBJ with uvs, the
+    components of a 512x512 mask, Bridson on the 128x128 map."""
+    import tempfile  # noqa: PLC0415
+
     import numpy as np  # noqa: PLC0415
 
     from fireflies_tpu_torch import datagen, native, sampling  # noqa: PLC0415
     from fireflies_tpu_torch.render.cuda import intersect_kernel  # noqa: PLC0415
+    from fireflies_tpu_torch.sampling import poisson  # noqa: PLC0415
+    from fireflies_tpu_torch.utils import io as ffio  # noqa: PLC0415
 
     cached = native.library_path().exists()
     t0 = time.perf_counter()
@@ -653,6 +660,42 @@ def native_phase() -> None:
     if not (same_order and n_cc == n_plain and n > 100 and spacing >= 1.0 - 1e-5
             and native.calls["bridson"] == native.calls["connected_components"] == 1):
         raise AssertionError("native: the host library disagrees with its plain versions")
+
+    def best_ms(fn) -> float:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * min(times)
+
+    big = rng.normal(size=(200000, 3)).astype(np.float32)
+    mask512 = rng.random((512, 512)) > 0.55
+    with tempfile.TemporaryDirectory() as td:
+        obj = f"{td}/grid.obj"
+        g = np.arange(256, dtype=np.float32) / 255.0
+        gx, gy = np.meshgrid(g, g)
+        idx = (np.arange(255)[:, None] * 256 + np.arange(255)[None, :]).reshape(-1) + 1
+        quads = np.stack([idx, idx + 1, idx + 257, idx + 256], axis=1)
+        with open(obj, "w") as f:
+            f.write("".join(f"v {x:.6f} {y:.6f} 0\n" for x, y in zip(gx.ravel(), gy.ravel())))
+            f.write("".join(f"vt {x:.6f} {y:.6f}\n" for x, y in zip(gx.ravel(), gy.ravel())))
+            f.write("".join(f"f {a}/{a} {b}/{b} {c}/{c} {d}/{d}\n" for a, b, c, d in quads))
+        pairs = {
+            "morton_order 5000": (lambda: native.morton_order(centroids),
+                                  lambda: intersect_kernel.morton_order(centroids)),
+            "morton_order 200000": (lambda: native.morton_order(big),
+                                    lambda: intersect_kernel.morton_order(big)),
+            "parse_obj 256x256 grid": (lambda: native.parse_obj(obj),
+                                       lambda: ffio._load_obj_python(obj)),
+            "connected_components 512x512": (lambda: native.connected_components(mask512),
+                                             lambda: datagen.connected_components_plain(mask512)),
+            "bridson 128x128": (lambda: native.bridson(radius_map, k=30, seed=0),
+                                lambda: poisson._bridson_numpy(radius_map, k=30, seed=0)),
+        }
+        timed = {name: (best_ms(fast), best_ms(plain)) for name, (fast, plain) in pairs.items()}
+    log("[native/timing] host ms, native against plain (best of 3): " + "; ".join(
+        f"{name} {a:.4f} against {b:.4f} ({b / a:.1f}x)" for name, (a, b) in timed.items()))
 
 
 def forward_phase(tag, bridge, randomize, beams, seeds, cfg, expected,
@@ -903,7 +946,7 @@ def reparam_phase(dev, seeds) -> tuple[dict, dict]:
           before, read just after): B1 and B3 only, at the counts
           `reparam_expected` derives; then a timed step, s/step and peak
           memory;
-      (e) the same step through `reparam_split_value_and_grad`'s phases
+      (e) the same step through `reparam_split_value_and_grad`
           (`pose_step(split=True)`): the loss within 1e-5 and the gradient
           within 1e-3 relative (L2) of (d)'s, s/step and peak memory.
     The variants: the first REPARAM_BATCH of `seeds`.  Returns (the
@@ -1038,7 +1081,7 @@ def reparam_phase(dev, seeds) -> tuple[dict, dict]:
             or not torch.isfinite(loss)):
         raise AssertionError("reparam: the translation gradient is not a finite nonzero (3,)")
 
-    # (e) the split pipeline (reparam_split_value_and_grad) against that step.
+    # (e) the same step through reparam_split_value_and_grad.
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1053,7 +1096,7 @@ def reparam_phase(dev, seeds) -> tuple[dict, dict]:
         f"relative to the monolithic step's), grad {grad_s.tolist()} ({g_rel:.3g} relative L2); "
         f"{split_s:.4f} s/step against {step_s:.4f}, peak {peak_s:.3f} GiB against {peak:.3f}")
     if not (loss_rel <= 1e-5 and g_rel <= 1e-3):
-        raise AssertionError("reparam: the split pipeline disagrees with the monolithic step")
+        raise AssertionError("reparam: the split step disagrees with the monolithic step")
     return res, counts
 
 

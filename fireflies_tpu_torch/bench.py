@@ -30,9 +30,10 @@ is the same step with `RenderConfig(reparam=True)`: the path-traced L2
 alone, its silhouette and shadow-edge gradients from the warped-area pass
 (render/reparam.py), whose warp the backward recomputes `reparam_chunk`
 rays at a time.  `reparam_split=1` (`--reparam-split 1`, the counterpart of
-BENCH_REPARAM_SPLIT) runs that step as
-`render.reparam.reparam_split_value_and_grad`'s phases (the same loss and
-gradient); the line's `pipeline` says which ran.  The reference takes the
+BENCH_REPARAM_SPLIT) takes that step through
+`render.reparam.reparam_split_value_and_grad` (the reference's phases,
+which the port's monolithic step already runs as); the line's `pipeline`
+says which entry ran.  The reference takes the
 split at 384^2 and above because a monolithic 512^2 step outlived the TPU
 runtime's limit on one dispatch; that threshold is the TPU's, not a
 contract, so the port's default is the monolithic step at every size.
@@ -130,7 +131,7 @@ def measure(size: int = 512, spp: int = 1, bounces: int = 2, repeats: int = 20,
     projector: `"pose_soft"`, the path-traced L2 plus a soft_size x
     soft_size soft-silhouette L2; `"pose_reparam"`, the path-traced L2 with
     warped-area gradients, the warp recomputed `reparam_chunk` rays at a
-    time, as one step or with `reparam_split` as the split pipeline); the
+    time, with `reparam_split` through `reparam_split_value_and_grad`); the
     result line as a dict (metric, value, unit, detail)."""
     if grad_mode not in ("beams", "pose_soft", "pose_reparam"):
         raise ValueError(f"grad_mode={grad_mode!r}: beams, pose_soft or pose_reparam")
@@ -419,7 +420,7 @@ def measure_datagen(size: int = 512, spp: int = 4, resolution: int = 24, batch: 
 
     with tempfile.TemporaryDirectory() as td:
         render_batch(list(range(DATAGEN_WARMUP_SEED, DATAGEN_WARMUP_SEED + batch)),
-                     list(range(batch)))  # warm-up, read back
+                     list(range(batch)))  # warm-up, untimed
         if multichip:  # the farm's collective once, so NCCL starts its communicator untimed
             dist.broadcast(torch.zeros(1, dtype=torch.int64, device=dev), src=0)
         render_s.clear()

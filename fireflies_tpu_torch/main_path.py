@@ -270,19 +270,18 @@ def pose_step(bridge: SceneBridge, randomize, beams: Tensor, delta: Tensor, seed
     row: the render's warped-area pass carries the boundary gradients).
     Variants and draws as `pose_scene` makes them.  `cfg.static_geometry`
     must be False, or the vertices get no gradient.  `split` (with
-    `cfg.reparam`) computes the same loss and gradient with
-    `reparam_split_value_and_grad`'s phases."""
+    `cfg.reparam` and `render_seeds`) takes the same step through
+    `reparam_split_value_and_grad`."""
     if cfg.static_geometry:
         raise ValueError("pose_step needs RenderConfig(static_geometry=False)")
     tgt_img, tgt_mask = targets
     if split:
-        if not cfg.reparam:
-            raise ValueError("pose_step(split=True) needs RenderConfig(reparam=True)")
-        gens = (generators(render_seeds, beams.device) if render_seeds is not None
-                else pose_scene(bridge, randomize, beams, delta, seeds)[1])
+        if not cfg.reparam or render_seeds is None:
+            raise ValueError("pose_step(split=True) needs RenderConfig(reparam=True) and "
+                             "render_seeds")
         step = reparam_split_value_and_grad(
             lambda d: pose_scene(bridge, randomize, beams, d, seeds)[0],
-            lambda img: image_l2(img, tgt_img), gens, cfg)
+            lambda img: image_l2(img, tgt_img), generators(render_seeds, beams.device), cfg)
         return step(delta.detach())
     delta = delta.detach().requires_grad_(True)
     scene, gens = pose_scene(bridge, randomize, beams, delta, seeds, render_seeds)

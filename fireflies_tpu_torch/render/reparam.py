@@ -53,15 +53,7 @@ import numpy as np
 import torch
 
 from fireflies_tpu_torch.render.intersect import closest_hit, hit_attributes
-from fireflies_tpu_torch.render.rays import (
-    HostDraws,
-    _tile_perm,
-    permute_rows,
-    pixel_to_ndc,
-    rays_from_ndc,
-    uniform,
-    unpermute_rows,
-)
+from fireflies_tpu_torch.render.rays import HostDraws, pixel_to_ndc, rays_from_ndc, uniform
 from fireflies_tpu_torch.render.types import Camera, Geometry, RenderConfig, RenderScene
 from fireflies_tpu_torch.render.vec3 import Vec3, from_array
 
@@ -571,41 +563,28 @@ class _WarpArea(torch.autograd.Function):
     @staticmethod
     def backward(ctx, du, darea):
         u, *live = ctx.saved_tensors
-        grads = _pull_back(ctx.warp_of, ctx.chunk, u, live, ctx.needs_input_grad[3:], du, darea)
+        need = ctx.needs_input_grad[3:]
+        grads = [None] * len(live)
+        if any(need):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(bool(nd)) for t, nd in zip(live, need)]
+                chunk_warp = ctx.warp_of(leaves)
+                want = [i for i, nd in enumerate(need) if nd]
+                n = u.shape[1]
+                step = ctx.chunk if ctx.chunk and ctx.chunk < n else n
+                for c0 in range(0, n, step):
+                    rows = slice(c0, c0 + step)
+                    v, div = _divergence(lambda uc: chunk_warp(uc, rows), u[:, rows])
+                    s = (v * du[:, rows]).sum() + (div * darea[:, rows]).sum()
+                    if not s.requires_grad:
+                        continue
+                    got = torch.autograd.grad(s, [leaves[i] for i in want], retain_graph=True,
+                                              allow_unused=True)
+                    for i, g in zip(want, got):
+                        if g is not None:
+                            grads[i] = g if grads[i] is None else grads[i] + g
         du_u = du if ctx.needs_input_grad[2] else None
         return (None, None, du_u, *grads)
-
-
-def _chunks(n: int, chunk: int) -> list[slice]:
-    """The row slices of `chunk` rays (all n at once for 0)."""
-    step = chunk if chunk and chunk < n else n
-    return [slice(c0, c0 + step) for c0 in range(0, n, step)]
-
-
-def _pull_back(warp_of, chunk: int, u: Tensor, live, need, du: Tensor, darea: Tensor) -> list:
-    """The gradients of sum(V du) + sum(div_u V darea) with respect to the
-    live inputs that `need` marks (None for the others): the warp
-    `warp_of(leaves)` -> chunk_warp(u_chunk, rows) recomputed under
-    autograd chunk by chunk of `chunk` rows of u (B, N, 2), each chunk
-    pulled back with its rows of (du, darea) and the results summed."""
-    grads = [None] * len(live)
-    if not any(need):
-        return grads
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(bool(nd)) for t, nd in zip(live, need)]
-        chunk_warp = warp_of(leaves)
-        want = [i for i, nd in enumerate(need) if nd]
-        for rows in _chunks(u.shape[1], chunk):
-            v, div = _divergence(lambda uc: chunk_warp(uc, rows), u[:, rows])
-            s = (v * du[:, rows]).sum() + (div * darea[:, rows]).sum()
-            if not s.requires_grad:
-                continue
-            got = torch.autograd.grad(s, [leaves[i] for i in want], retain_graph=True,
-                                      allow_unused=True)
-            for i, g in zip(want, got):
-                if g is not None:
-                    grads[i] = g if grads[i] is None else grads[i] + g
-    return grads
 
 
 def _constellation_uniforms(gens, k_aux: int, device, uniforms) -> Tensor:
@@ -625,23 +604,10 @@ def reparam_ndc(camera: Camera, u: Tensor, geometry: Geometry, gens=None, k_aux:
     The constellation: (1, m, 2) uniforms from each variant's generator in
     `gens`, or `uniforms`."""
     xi = _constellation_uniforms(gens, k_aux, u.device, uniforms)
-    warp_of = _ndc_warp_of(camera, geometry, xi, k_aux, radius, tile_cull, kappa)
-    return _WarpArea.apply(warp_of, chunk, u, *_ndc_live(camera, geometry, light_positions))
-
-
-def _ndc_live(camera: Camera, geometry: Geometry, light_positions: Tensor | None) -> list:
-    """The screen warp's live inputs: the vertices, the camera's pose and
-    fov, and the light positions when there are any."""
-    live = [geometry.vertices, camera.to_world, camera.fov]
-    return live if light_positions is None else [*live, light_positions]
-
-
-def _ndc_warp_of(camera: Camera, geometry: Geometry, xi: Tensor, k_aux: int, radius: float,
-                 tile_cull: bool, kappa: float = 4.0):
-    """warp_of(live leaves) -> chunk_warp(u_chunk, rows): the screen warp
-    of the constellation `xi` with the live inputs (`_ndc_live`'s order)
-    replaced by the leaves."""
     topology = _edge_topology(geometry)
+    live = [geometry.vertices, camera.to_world, camera.fov]
+    if light_positions is not None:
+        live.append(light_positions)
 
     def warp_of(leaves):
         verts, to_world, fov, *lp = leaves
@@ -651,7 +617,7 @@ def _ndc_warp_of(camera: Camera, geometry: Geometry, xi: Tensor, k_aux: int, rad
                                uniforms=xi, topology=topology, tile_cull=tile_cull)
         return lambda uc, rows: warp(uc)
 
-    return warp_of
+    return _WarpArea.apply(warp_of, chunk, u, *live)
 
 
 def reparam_direction(x: Tensor, w: Tensor, geometry: Geometry, gens=None, k_aux: int = 6,
@@ -687,40 +653,32 @@ def reparam_direction(x: Tensor, w: Tensor, geometry: Geometry, gens=None, k_aux
 
 def reparam_split_value_and_grad(scene_fn: Callable, image_loss: Callable[[Tensor], Tensor],
                                  gens, config: RenderConfig) -> Callable:
-    """The warped-area step as a pipeline of phases: step(theta) ->
-    (loss, grad), the value and gradient of
+    """step(theta) -> (loss, grad): the value and gradient of
     image_loss(render_rgb(scene_fn(theta), gens, config)) with
-    `config.reparam`, computed as the reference's host-split pipeline
-    computes it:
+    `config.reparam`, the reference's host-split warped-area step.
 
-      * phase A: the warp's forward, `reparam_chunk` rays at a time, with
-        no graph kept (here the forward is the warp's value (u, 1),
-        `_WarpArea`'s, which needs no warp evaluation);
-      * phase B: the render, the loss and its gradient with respect to
-        (theta, the warped samples u', the area factor), with u' and the
-        area as leaves;
-      * phase C: the warp recomputed under autograd, chunk by chunk, and
-        pulled back with phase B's (du', d area) to theta.
+    The reference runs that step as three phases so that no TPU dispatch
+    outlives its runtime's limit: (A) the warp's forward, a chunk of rays
+    at a time; (B) the render, the loss and its gradient with respect to
+    (theta, the warped samples, the area factor); (C) each chunk's warp
+    recomputed and pulled back with B's cotangents, so that no warp
+    residual is kept from one phase to the next.  The port's monolithic
+    step already runs so: `_WarpArea`'s forward is the warp's value
+    (u, 1), which needs no warp evaluation (A); the backward through the
+    render gives (du', d area) (B); and `_WarpArea.backward` recomputes
+    the warp `reparam_chunk` rays at a time and pulls each chunk back (C).
+    So this is that step, with the reference's signature.
 
-    The gradient is phase B's direct term plus the sum of the chunks'
-    terms: the chain rule of the monolithic step, with no warp residual
-    kept from one phase to the next.  The reference split its step so that
-    no single TPU dispatch outlived its runtime's limit; the port's
-    monolithic step (`_WarpArea`) already recomputes the warp chunk by
-    chunk in its backward, so this pipeline computes the same loss and
-    gradient at about the same cost.
-
-    `scene_fn(theta)` -> a batched RenderScene; it must be deterministic
-    (phases B and C each call it once).  theta: a tensor or a pytree of
-    tensors (dict, list, tuple); the gradient has its structure.
+    `scene_fn(theta)` -> a batched RenderScene.  theta: a tensor or a
+    pytree of tensors (dict, list, tuple); the gradient has its structure.
     `image_loss(images (B, H, W, 3))` -> a scalar.  `gens` (one
     torch.Generator per variant, or `rays.HostDraws`) plays the
     reference's key: their states are taken now and every step draws from
-    copies of them, as render_rgb would (the value pass, the jitter, the
-    constellation, the warped pass's path), so every step makes the same
-    draws and the caller's generators do not move.  Requires config.spp
-    == 1 and no `reparam_indirect` (the indirect warp lives inside the
-    path and cannot be split at this seam): NotImplementedError otherwise.
+    copies of them, so every step makes the same draws and the caller's
+    generators do not move.  Requires config.spp == 1 and no
+    `reparam_indirect`, as the reference does (its indirect warp lives
+    inside the path, past its phases' seam): NotImplementedError
+    otherwise.
     """
     if config.spp != 1:
         raise NotImplementedError("reparam_split_value_and_grad: spp must be 1")
@@ -728,11 +686,9 @@ def reparam_split_value_and_grad(scene_fn: Callable, image_loss: Callable[[Tenso
         raise NotImplementedError("reparam_split_value_and_grad: indirect warp cannot be split")
     from torch.utils import _pytree  # noqa: PLC0415
 
-    from fireflies_tpu_torch.render import lights as lights_mod  # noqa: PLC0415
-    from fireflies_tpu_torch.render.pathtracer import render_rgb, trace_rays  # noqa: PLC0415
+    from fireflies_tpu_torch.render.pathtracer import render_rgb  # noqa: PLC0415
 
     states = [g.get_state() for g in gens]
-    w, h = config.width, config.height
 
     def draws():
         out = []
@@ -742,62 +698,13 @@ def reparam_split_value_and_grad(scene_fn: Callable, image_loss: Callable[[Tenso
             out.append(c)
         return HostDraws(out) if isinstance(gens, HostDraws) else out
 
-    def light_positions(scene):
-        positions = lights_mod.emitter_positions(scene.lights, scene.projector)
-        return torch.stack(positions, dim=1) if positions else None
-
     def step(theta):
         flat, spec = _pytree.tree_flatten(theta)
         leaves = [t.detach().requires_grad_(True) for t in flat]
-        g = draws()
-        scene = scene_fn(_pytree.tree_unflatten(leaves, spec))
-        dev = scene.geometry.vertices.device
-        with torch.no_grad():
-            primal = render_rgb(scene, g, config.replace(reparam=False))
-        py, px = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
-                                torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
-        jit_xy = uniform(g, (h * w, 2), dev)
-        u = pixel_to_ndc(px.reshape(-1) + jit_xy[..., 0], py.reshape(-1) + jit_xy[..., 1], w, h)
-        xi = _constellation_uniforms(g, config.reparam_k_aux, dev, None)
-        warp_of = _ndc_warp_of(scene.camera, scene.geometry, xi, config.reparam_k_aux,
-                               config.reparam_radius, config.tile_cull)
-        chunks = _chunks(u.shape[1], config.reparam_chunk)
-
-        # Phase A: the warp's forward, chunk by chunk, no graph.
-        with torch.no_grad():
-            live = _ndc_live(scene.camera, scene.geometry, light_positions(scene))
-            outs = [_WarpArea.apply(warp_of, 0, u[:, rows], *live) for rows in chunks]
-        u_rep = torch.cat([o[0] for o in outs], dim=1).requires_grad_(True)
-        area = torch.cat([o[1] for o in outs], dim=1).requires_grad_(True)
-
-        # Phase B: the render and the loss; the gradient to theta, u' and area.
-        o, d = rays_from_ndc(scene.camera, u_rep)
-        radiance = trace_rays(scene, permute_rows(o, w, h), permute_rows(d, w, h), g, config,
-                              primary_origin=scene.camera.to_world[:, :3, 3])
-        radiance = radiance * permute_rows(area, w, h)[..., None]
-        perms = _tile_perm(w, h, dev)
-        g_img = unpermute_rows(radiance, None if perms is None else perms[1], w, h).reshape(
-            scene.batch, h, w, 3)
-        loss = image_loss(primal + (g_img - g_img.detach()))
-        *grads, du, darea = torch.autograd.grad(loss, [*leaves, u_rep, area], allow_unused=True)
-        del scene, o, d, radiance, g_img
-
-        # Phase C: each chunk's warp recomputed and pulled back to theta.
-        if du is not None or darea is not None:
-            du = torch.zeros_like(u_rep) if du is None else du
-            darea = torch.zeros_like(area) if darea is None else darea
-            scene = scene_fn(_pytree.tree_unflatten(leaves, spec))
-            live = _ndc_live(scene.camera, scene.geometry, light_positions(scene))
-            pulled = _pull_back(warp_of, config.reparam_chunk, u, live,
-                                [t.requires_grad for t in live], du, darea)
-            pairs = [(t, gl) for t, gl in zip(live, pulled) if gl is not None]
-            if pairs:
-                via_warp = torch.autograd.grad([t for t, _ in pairs], leaves,
-                                               grad_outputs=[gl for _, gl in pairs],
-                                               allow_unused=True)
-                grads = [a if b is None else b if a is None else a + b
-                         for a, b in zip(grads, via_warp)]
-        grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(leaves, grads)]
+        loss = image_loss(render_rgb(scene_fn(_pytree.tree_unflatten(leaves, spec)), draws(),
+                                     config))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
         return loss.detach(), _pytree.tree_unflatten(grads, spec)
 
     return step

@@ -1,23 +1,27 @@
 """Port parity for `render/reparam.py::reparam_split_value_and_grad`, the
-warped-area step as phases (the warp's forward chunk by chunk, the render
-and its gradient to theta and the warped samples, each chunk's warp pulled
-back), against the monolithic `render_rgb(RenderConfig(reparam=True))`
-step on the same generators: tests/test_reparam.py's
-`test_split_step_matches_monolithic` (the emissive quad moving towards the
-camera at 32x32, `reparam_chunk` 256, the loss mean(img^2)) with its
-tolerances, loss 1e-5 and gradient 1e-3 relative, and a boundary term
-above 1e-4.  The monolithic step is held against the JAX package's render
-gradient on this quad by tests/test_torch_reparam_render.py.  A second
-step draws the same (the generators play the reference's key) and leaves
-the caller's generators where they were; theta may be a dict of tensors;
-spp 2 and `reparam_indirect` raise NotImplementedError, as in the JAX
-function.
+warped-area step with the reference's host-split signature, on
+tests/test_reparam.py's `test_split_step_matches_monolithic` setting (the
+emissive quad moving towards the camera at 32x32, `reparam_chunk` 256, the
+loss mean(img^2)) with its tolerances, loss 1e-5 and gradient 1e-3
+relative, and a boundary term above 1e-4: against the port's monolithic
+`render_rgb(RenderConfig(reparam=True))` step on the same generators, and
+against the JAX package's `reparam_split_value_and_grad` on the same
+uniforms (JAX's draws for key 3 fed to the port in its draw order, as
+tests/test_torch_reparam_render.py feeds them).  A second step draws the
+same (the generators play the reference's key) and leaves the caller's
+generators where they were; theta may be a dict of tensors; spp 2 and
+`reparam_indirect` raise NotImplementedError, as in the JAX function.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_reparam_render import QUAD, _jax_draws, _jx_scene, injected  # noqa: F401
 
+from fireflies_tpu.render import RenderConfig as JxConfig
+from fireflies_tpu.render.reparam import reparam_split_value_and_grad as jx_split
 from fireflies_tpu_torch.render import RenderConfig, render_rgb
 from fireflies_tpu_torch.render import types as tc
 from fireflies_tpu_torch.render.reparam import reparam_split_value_and_grad
@@ -81,6 +85,27 @@ def test_split_step_matches_monolithic():
     l_again, g_again = step({"dz": torch.tensor(0.0)})
     assert float(l_again) == float(l_split) and g_again.keys() == {"dz"}
     np.testing.assert_allclose(float(g_again["dz"]), float(g_split), rtol=1e-6)
+
+
+def test_split_step_matches_jax(injected):
+    key = jax.random.key(3)
+    jx_cfg = JxConfig(width=32, height=32, spp=1, max_bounces=1, tri_chunk=16, reparam=True,
+                      reparam_k_aux=4, reparam_radius=0.06, reparam_chunk=256)
+
+    def jx_scene(dz):
+        verts = jnp.asarray(QUAD) + jnp.stack([0 * dz, 0 * dz, dz])
+        return _jx_scene(verts, np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+                         np.asarray(EMISSION)[None])
+
+    l_jax, g_jax = jx_split(jx_scene, lambda img: jnp.mean(img * img), key, jx_cfg)(
+        jnp.asarray(0.0))
+    injected.extend(_jax_draws(key, CFG.width * CFG.height, CFG.reparam_k_aux))
+    step = reparam_split_value_and_grad(_scene, _image_loss, _gens(), CFG)
+    l_port, g_port = step(torch.tensor(0.0))
+    assert not injected  # every draw was taken
+    np.testing.assert_allclose(float(l_port), float(l_jax), rtol=1e-5)
+    assert abs(float(g_jax)) > 1e-4
+    np.testing.assert_allclose(float(g_port), float(g_jax), rtol=1e-3)
 
 
 def test_split_step_refuses_what_it_cannot_split():
