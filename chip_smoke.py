@@ -125,6 +125,15 @@ Phases (each raises on failure, so any failure exits non-zero):
      synthetic 3-joint rig and `rand_perlin_2d` / the noise sampler from
      injected draws, CUDA against the CPU (1e-5 of the vertices' scale,
      1e-4 relative L2, 1e-5 absolute);
+  api (`api_check`): the JAX package's factories and arguments on the
+     card: examples/13's quad from `Materials.default`, `Lights.empty` and
+     `Camera.create`, its fields bit for bit and its `render_depth_reparam`
+     (within 1e-6, the same launches) against the scene built field by
+     field; `scenes.vocalfold(projector_texture=t)` at the main shape lit
+     through the bridge's own texture, counted (B1 and B3, no other),
+     against `render_batch` with the same texture passed per variant (1e-5
+     of the image's max); 5 `optimize_params` steps with an SGD factory
+     over the spot light's intensity scale, the losses finite and falling;
   then the two loops, each with every counter set to 0 just before it and
   read just after (B1 and B3 launched, no other kernel):
   optimize: `optim.optimize_pattern_through_render` over
@@ -234,6 +243,7 @@ last.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -1834,6 +1844,164 @@ def scene_modules_check(dev) -> None:
         raise AssertionError("scene_files: lbs or the Perlin noise disagrees with the CPU")
 
 
+API_QUAD = (96, 8, 0.08)  # examples/13's film, aux rays and warp radius
+API_STEPS, API_VARIANTS, API_SIZE = 5, 4, 128  # the optimize_params check
+API_MOMENTUM, API_DECAY = 0.5, 0.08  # SGD's momentum; 2 lr |d mean / d s|^2
+
+
+def _api_quad_fields(dx, dev):
+    """examples/13's scene, a unit quad at z = -2 moved dx along x, built
+    field by field: its (geometry, materials, lights, camera)."""
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch.render import types as tc  # noqa: PLC0415
+
+    half, z = 0.5, -2.0
+    verts = torch.tensor([[-half, -half, z], [half, -half, z], [half, half, z], [-half, half, z]],
+                         device=dev) + torch.stack([dx, 0 * dx, 0 * dx])[None, :]
+    geo = tc.Geometry(vertices=verts[None], faces=torch.tensor([[0, 1, 2], [0, 2, 3]], device=dev),
+                      face_mat=torch.zeros(2, dtype=torch.long, device=dev),
+                      face_mesh=torch.zeros(2, dtype=torch.long, device=dev))
+    one, zero = torch.ones(1, 1, device=dev), torch.zeros(1, 1, device=dev)
+    mats = tc.Materials(
+        base_color=torch.full((1, 1, 3), 0.8, device=dev), roughness=0.5 * one, metallic=zero,
+        specular=0.5 * one, spec_tint=zero, clearcoat=zero, clearcoat_gloss=one, sheen=zero,
+        sheen_tint=0.5 * one, anisotropic=zero, spec_trans=zero, flatness=zero, ior=1.5 * one,
+        thin=zero, emission=torch.zeros(1, 1, 3, device=dev))
+    none = torch.zeros(1, 0, device=dev)
+    lights = tc.Lights(kinds=(), to_world=torch.zeros(1, 0, 4, 4, device=dev),
+                       intensity=torch.zeros(1, 0, 3, device=dev), cutoff_cos=none,
+                       beam_cos=none, active=none.bool())
+    cam = tc.Camera(to_world=torch.eye(4, device=dev)[None],
+                    fov=torch.tensor([60.0], device=dev), near=torch.tensor([0.01], device=dev),
+                    far=torch.tensor([1000.0], device=dev))
+    return geo, mats, lights, cam
+
+
+def api_check(dev) -> float:
+    """The constructors, arguments and factories the JAX package's scripts
+    use, on the card.  (1) examples/13's quad scene from
+    `Materials.default`, `Lights.empty` and `Camera.create` has the fields
+    of the scene built field by field, bit for bit, and its
+    `render_depth_reparam` depth equals theirs within 1e-6 of the depth's
+    largest value, with the same launches.  (2)
+    `scenes.vocalfold(projector_texture=t)`, t the main shape's beams
+    rasterized as the texture route rasterizes them: a batch of BATCH
+    variants at SIZE^2 lit through the bridge's own texture, counted as
+    `forward_phase` counts (B1 and B3, no other), against
+    `main_path.render_batch(analytic=False)`, which passes the same texture
+    as each variant's "tex.data" (1e-5 of the image's largest value).
+    (3) API_STEPS `optim.optimize_params` steps with an SGD factory
+    (momentum API_MOMENTUM, the learning rate set from the first gradient
+    so that the step is API_DECAY of the quadratic's curvature) over a
+    scale on the spot light's intensity, API_VARIANTS fixed variants of
+    the vocalfold scene at API_SIZE^2 towards half their mean brightness:
+    finite losses, the last below the first.  Returns its seconds."""
+    import numpy as np  # noqa: PLC0415
+    import torch  # noqa: PLC0415
+
+    from fireflies_tpu_torch import main_path, optim  # noqa: PLC0415
+    from fireflies_tpu_torch.assets import scenes  # noqa: PLC0415
+    from fireflies_tpu_torch.projection import laser  # noqa: PLC0415
+    from fireflies_tpu_torch.render import (  # noqa: PLC0415
+        RenderConfig, SceneBridge, render_depth_reparam, render_rgb)
+    from fireflies_tpu_torch.render import types as tc  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    res, k_aux, radius = API_QUAD
+    dx = torch.tensor(0.3, device=dev)
+    geo, mats, lights, cam = _api_quad_fields(dx, dev)
+    built = (tc.Materials.default(1, device=dev), tc.Lights.empty(device=dev),
+             tc.Camera.create(torch.eye(4, device=dev), fov=60.0))
+    for by_hand, made in zip((mats, lights, cam), built):
+        for f in dataclasses.fields(by_hand):
+            a, b = getattr(by_hand, f.name), getattr(made, f.name)
+            same = (torch.equal(a, b) and a.dtype == b.dtype and a.device == b.device
+                    if isinstance(a, torch.Tensor) else a == b)
+            if not same:
+                raise AssertionError(f"api: {type(made).__name__}.{f.name} differs from the "
+                                     f"field built by hand: {b} against {a}")
+    cfg = RenderConfig(width=res, height=res, tri_chunk=16)
+    depths, counts = [], []
+    for m, li, c in ((mats, lights, cam), built):
+        scene = tc.RenderScene(geometry=geo, materials=m, lights=li, camera=c)
+        out = {}
+
+        def drive():
+            with torch.no_grad():
+                out["d"] = render_depth_reparam(
+                    scene, cfg, [torch.Generator(device=dev).manual_seed(0)], k_aux=k_aux,
+                    radius=radius)
+
+        counts.append(count_launches(drive))
+        depths.append(out["d"])
+    quad_err = float((depths[1] - depths[0]).abs().max() / depths[0].abs().max())
+    log(f"[api/factories] examples/13's quad {tuple(depths[0].shape)}: depth max "
+        f"{depths[0].max().item():.6g}, factories against fields max |diff| {quad_err:.3g} of "
+        f"the max; launches {counts[1]}")
+    if (not torch.isfinite(depths[1]).all() or depths[0].max() <= 0 or quad_err > 1e-6
+            or counts[0] != counts[1] or not any(counts[1].values())):
+        raise AssertionError(f"api: the factories' quad render differs: {quad_err}, {counts}")
+
+    bridge0, randomize, beams, cfg = main_path.build_shape("main", dev, SIZE)
+    tex = laser.rays_to_texture_rgb(beams, main_path.PROJECTOR_FOV, sigma=main_path.BEAM_SIGMA,
+                                    texture_size=main_path.BEAM_TEXTURE, blur_kernel=0)
+    scene, kw = scenes.vocalfold(resolution=main_path.SHAPES["main"][0], n_anim_frames=4,
+                                 projector_texture=tex.cpu().numpy())
+    bridge = SceneBridge(scene, **kw)
+    seeds = list(range(BATCH))
+    out = {}
+
+    def drive():
+        gens = main_path.generators(seeds, dev)  # as render_batch: randomize, then render
+        with torch.no_grad():
+            out["img"] = render_rgb(bridge.assemble([randomize(g, 0) for g in gens]), gens, cfg)
+
+    launches = count_launches(drive)
+    with torch.no_grad():
+        ref = main_path.render_batch(bridge0, randomize, beams, seeds, cfg, analytic=False)
+    img = out["img"]
+    tex_err = float((img - ref).abs().max() / ref.abs().max())
+    log(f"[api/projector_texture] vocalfold(projector_texture={tuple(tex.shape)}): image "
+        f"{tuple(img.shape)} mean {img.mean().item():.6g}, against per-variant tex.data max "
+        f"|diff| {tex_err:.3g} of the max; launches {launches}")
+    if not torch.isfinite(img).all() or ref.abs().max() == 0 or tex_err > 1e-5:
+        raise AssertionError(f"api: vocalfold(projector_texture=) renders differently: {tex_err}")
+    check_launches("api/projector_texture", launches, (B1, B3))
+
+    small = cfg.replace(width=API_SIZE, height=API_SIZE)
+    fixed = [randomize(g, 0) for g in main_path.generators(range(API_VARIANTS), dev)]
+    spot = fixed[0]["emit-Spot.intensity"]
+
+    def brightness(s, gens):
+        params = [dict(p, **{"emit-Spot.intensity": s * spot}) for p in fixed]
+        return render_rgb(bridge.assemble(params), gens, small).mean(dim=(1, 2, 3))
+
+    with torch.no_grad():
+        target = 0.5 * brightness(torch.ones((), device=dev),
+                                  main_path.generators(range(API_VARIANTS), dev))
+
+    def loss_fn(trainable, gens):
+        return (brightness(trainable["s"], gens) - target) ** 2
+
+    s0 = torch.ones((), device=dev, requires_grad=True)
+    (slope,) = torch.autograd.grad(brightness(s0, main_path.generators(range(API_VARIANTS), dev)
+                                              ).mean(), s0)
+    lr = API_DECAY / (2.0 * float(slope) ** 2)
+    res_opt = optim.optimize_params(
+        {"s": torch.ones((), device=dev)}, loss_fn, steps=API_STEPS, grad_batch=API_VARIANTS,
+        optimizer=lambda p: torch.optim.SGD(p, lr=lr, momentum=API_MOMENTUM))
+    losses = res_opt.losses.cpu().numpy()
+    log(f"[api/optimize_params] SGD (lr {lr:.6g}, momentum {API_MOMENTUM}) over the spot's "
+        f"scale, {API_VARIANTS} variants at {API_SIZE}^2: losses {losses.tolist()}, scale "
+        f"{float(res_opt.params['s']):.6g}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"api: optimize_params with an SGD factory did not descend: {losses}")
+    seconds = time.perf_counter() - t0
+    log(f"[api] {seconds:.1f} s")
+    return seconds
+
+
 def scene_files_phase(dev, seeds, smi: str) -> tuple[dict, dict]:
     """The two paths that load the vocalfold scene from a file
     (`main_path.BUILDERS`): `xml` (tools/parity_scenes/vocalfold.xml
@@ -2565,6 +2733,8 @@ def main() -> int:
     kres.update(res)
     path_launches.update(counts)
     log(f"[scene_files] {time.perf_counter() - t_files:.1f} s")
+
+    api_check(dev)
 
     t_opt = time.perf_counter()
     path_launches["optimize"] = optimize_phase(dev)

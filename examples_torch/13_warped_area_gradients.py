@@ -46,21 +46,12 @@ def make_scene(dx, dev):
         face_mat=torch.zeros(2, dtype=torch.long, device=dev),
         face_mesh=torch.zeros(2, dtype=torch.long, device=dev),
     )
-    one, zero = torch.ones(1, 1, device=dev), torch.zeros(1, 1, device=dev)
-    materials = Materials(
-        base_color=torch.full((1, 1, 3), 0.8, device=dev), roughness=0.5 * one,
-        metallic=zero, specular=0.5 * one, spec_tint=zero, clearcoat=zero,
-        clearcoat_gloss=one, sheen=zero, sheen_tint=0.5 * one, anisotropic=zero,
-        spec_trans=zero, flatness=zero, ior=1.5 * one, thin=zero,
-        emission=torch.zeros(1, 1, 3, device=dev),
+    return RenderScene(
+        geometry=geo,
+        materials=Materials.default(1, device=dev),
+        lights=Lights.empty(device=dev),
+        camera=Camera.create(torch.eye(4, device=dev), fov=60.0),
     )
-    none = torch.zeros(1, 0, device=dev)
-    lights = Lights(kinds=(), to_world=torch.zeros(1, 0, 4, 4, device=dev),
-                    intensity=torch.zeros(1, 0, 3, device=dev), cutoff_cos=none,
-                    beam_cos=none, active=none.bool())
-    camera = Camera(to_world=torch.eye(4, device=dev)[None], fov=torch.tensor([60.0], device=dev),
-                    near=torch.tensor([0.01], device=dev), far=torch.tensor([1000.0], device=dev))
-    return RenderScene(geometry=geo, materials=materials, lights=lights, camera=camera)
 
 
 def generator(seed, dev):

@@ -1,0 +1,1 @@
+from fireflies_tpu_torch.assets import procedural, scenes  # noqa: F401

@@ -90,11 +90,14 @@ def cornell_like():
 
 
 def vocalfold(resolution: int = 24, n_anim_frames: int = 8, with_projector: bool = True,
-              smooth: bool = False):
+              projector_texture=None, smooth: bool = False):
     """The structured-light laryngoscopy scene: camera above the folds
     looking down -Z, a spot light beside it, a laser projector offset by a
-    small baseline.  `smooth` shades both meshes with interpolated vertex
-    normals (the reference's OBJ default); flat is the default."""
+    small baseline.  `projector_texture` (H, W, 3) goes to the bridge as
+    its `projector_texture`: the texture route's projector image where a
+    variant passes no "tex.data" of its own.  `smooth` shades both meshes with
+    interpolated vertex normals (the reference's OBJ default); flat is the
+    default."""
     scene = ff.Scene()
 
     vf_verts, vf_faces, vf_uvs = procedural.make_vocalfold(resolution=resolution)
@@ -137,4 +140,6 @@ def vocalfold(resolution: int = 24, n_anim_frames: int = 8, with_projector: bool
         "projector_scale": 20.0,
         "background": (0.0, 0.0, 0.0),
     }
+    if projector_texture is not None:
+        bridge_kwargs["projector_texture"] = projector_texture
     return scene, bridge_kwargs

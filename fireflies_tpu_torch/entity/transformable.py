@@ -12,7 +12,7 @@ along a NURBS path.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -83,34 +83,37 @@ class Transformable:
         self._randomizable = True
         self._translation_sampler = sampler
 
-    def rotate_x(self, lo: float, hi: float) -> None:
+    def rotate_x(self, min_rot: float, max_rot: float) -> None:
         self._randomizable = True
-        self._rotation_sampler = self._rotation_sampler.set_index_interval(0, lo, hi)
+        self._rotation_sampler = self._rotation_sampler.set_index_interval(0, min_rot, max_rot)
 
-    def rotate_y(self, lo: float, hi: float) -> None:
+    def rotate_y(self, min_rot: float, max_rot: float) -> None:
         self._randomizable = True
-        self._rotation_sampler = self._rotation_sampler.set_index_interval(1, lo, hi)
+        self._rotation_sampler = self._rotation_sampler.set_index_interval(1, min_rot, max_rot)
 
-    def rotate_z(self, lo: float, hi: float) -> None:
+    def rotate_z(self, min_rot: float, max_rot: float) -> None:
         self._randomizable = True
-        self._rotation_sampler = self._rotation_sampler.set_index_interval(2, lo, hi)
+        self._rotation_sampler = self._rotation_sampler.set_index_interval(2, min_rot, max_rot)
 
     def rotate(self, minimum, maximum) -> None:
         """Euler-angle intervals of all three axes at once ((3,) each)."""
         self._randomizable = True
         self._rotation_sampler = self._rotation_sampler.set_sample_interval(minimum, maximum)
 
-    def translate_x(self, lo: float, hi: float) -> None:
+    def translate_x(self, min_t: float, max_t: float) -> None:
         self._randomizable = True
-        self._translation_sampler = self._translation_sampler.set_index_interval(0, lo, hi)
+        self._translation_sampler = self._translation_sampler.set_index_interval(0, min_t,
+                                                                                 max_t)
 
-    def translate_y(self, lo: float, hi: float) -> None:
+    def translate_y(self, min_t: float, max_t: float) -> None:
         self._randomizable = True
-        self._translation_sampler = self._translation_sampler.set_index_interval(1, lo, hi)
+        self._translation_sampler = self._translation_sampler.set_index_interval(1, min_t,
+                                                                                 max_t)
 
-    def translate_z(self, lo: float, hi: float) -> None:
+    def translate_z(self, min_t: float, max_t: float) -> None:
         self._randomizable = True
-        self._translation_sampler = self._translation_sampler.set_index_interval(2, lo, hi)
+        self._translation_sampler = self._translation_sampler.set_index_interval(2, min_t,
+                                                                                 max_t)
 
     def translate(self, minimum, maximum) -> None:
         """Translation intervals of all three axes at once ((3,) each)."""
@@ -202,3 +205,6 @@ class Curve(Transformable):
         m = ffmath.to_mat4x4(ffmath.rotation_matrix_from_vectors(forward, tangent))
         m[:3, 3] = point
         return m @ torch.as_tensor(self._world, device=device)
+
+
+AnimationFunc = Callable[[Tensor, Tensor], Tensor]

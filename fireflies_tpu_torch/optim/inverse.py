@@ -1,8 +1,9 @@
 """Inverse rendering: optimize scene parameters against target images
 (port of fireflies_tpu/optim/inverse.py).
 
-`optimize_params` runs Adam over a dict of trainable tensors, the rest of
-the scene closed over by the loss.  The image objectives reduce by the mean
+`optimize_params` runs Adam (or an optimizer the caller makes) over a dict
+of trainable tensors, the rest of the scene closed over by the loss.  The
+image objectives reduce by the mean
 over every element they are given, so a batch of equally sized images
 gives the mean of the per-image losses.
 
@@ -51,9 +52,13 @@ def hybrid_pose_loss(rendered: Tensor, target: Tensor, soft_mask: Tensor, target
 
 def optimize_params(trainable_init: dict, loss_fn: Callable[[dict, list], Tensor], seed: int = 0,
                     steps: int = 100, learning_rate: float = 1e-2,
+                    optimizer: Callable[[list], torch.optim.Optimizer] | None = None,
                     grad_batch: int = 1) -> InverseResult:
     """Adam (torch.optim.Adam's defaults: optax.adam's update) over a dict
-    of trainable tensors.
+    of trainable tensors, or the optimizer `optimizer(params)` makes from
+    the list of them (the counterpart of an optax transformation, e.g.
+    `lambda p: torch.optim.SGD(p, lr=1e-2, momentum=0.9)` for
+    `optax.sgd(1e-2, 0.9)`; `learning_rate` then goes unused).
 
     loss_fn(trainable, gens) -> (len(gens),) per-variant losses (or a
     scalar) closes over the scene and the render; each step passes it
@@ -63,7 +68,8 @@ def optimize_params(trainable_init: dict, loss_fn: Callable[[dict, list], Tensor
     device: no host sync per step.
     """
     params = {k: v.detach().clone().requires_grad_(True) for k, v in trainable_init.items()}
-    opt = torch.optim.Adam(params.values(), lr=learning_rate)
+    opt = (torch.optim.Adam(params.values(), lr=learning_rate) if optimizer is None
+           else optimizer(list(params.values())))
     device = next(iter(params.values())).device
     losses = []
     for step in range(steps):

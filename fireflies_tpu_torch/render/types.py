@@ -7,6 +7,13 @@ rows (B, M), ...), while static topology and tables shared by every variant
 from one randomized param dict per variant.  Scene-static tables carry no
 variant axis: the envmap background and its orientation, the emissive-face
 set, the lobe flags.
+
+The factories (`Camera.create`, `Projector.create`, `Materials.default`,
+`Lights.empty`) give the JAX package's factories' values with the variant
+axis in front: the pose factories take B and the device from `to_world`
+((4, 4) is one variant, (B, 4, 4) B of them; not a tensor: the card), the
+others take `batch` and `device` (the card unless the caller asks for the
+CPU).
 """
 
 from __future__ import annotations
@@ -22,11 +29,28 @@ Tensor = torch.Tensor
 
 LIGHT_POINT = 0
 LIGHT_SPOT = 1
+LIGHT_PROJECTOR = 2
+LIGHT_AREA = 3
 
 
 class _Replace:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+def _poses(to_world) -> Tensor:
+    """`to_world` as float32 (B, 4, 4) on its own device if it is a tensor,
+    else on the card."""
+    device = to_world.device if isinstance(to_world, Tensor) else "cuda"
+    m = torch.as_tensor(to_world, dtype=torch.float32, device=device)
+    return m[None] if m.dim() == 2 else m
+
+
+def _per_variant(x, like: Tensor, *shape) -> Tensor:
+    """`x` (one value, or one a variant) as float32 (B, *shape) on the
+    device of `like` (B, 4, 4)."""
+    t = torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    return t.expand(like.shape[0], *shape).contiguous()
 
 
 @dataclasses.dataclass
@@ -38,6 +62,12 @@ class Camera(_Replace):
     fov: Tensor  # (B,) degrees, horizontal
     near: Tensor  # (B,)
     far: Tensor  # (B,)
+
+    @classmethod
+    def create(cls, to_world, fov=45.0, near=0.01, far=1000.0) -> "Camera":
+        m = _poses(to_world)
+        return cls(to_world=m, fov=_per_variant(fov, m), near=_per_variant(near, m),
+                   far=_per_variant(far, m))
 
 
 @dataclasses.dataclass
@@ -65,6 +95,31 @@ class Projector(_Replace):
     beam_color: Optional[Tensor] = None
     beam_hw: Optional[tuple] = None
 
+    @classmethod
+    def create(cls, to_world, texture, fov=30.0, near=0.01, far=1000.0, scale=1.0,
+               aperture=None, beams_ndc=None, beam_sigma=10.0,
+               beam_color=(0.0, 1.0, 0.0), beam_hw=(256, 256)) -> "Projector":
+        """`beams_ndc` (K, 2) or (B, K, 2) selects the analytic beam mode,
+        where `beam_sigma`, `beam_color` and `beam_hw` apply; else they are
+        None, as in the JAX factory."""
+        m = _poses(to_world)
+        analytic = beams_ndc is not None
+        if analytic:
+            beams = torch.as_tensor(beams_ndc, dtype=torch.float32, device=m.device)
+            beams = beams.expand(m.shape[0], *beams.shape[-2:]).contiguous()
+        return cls(
+            to_world=m, fov=_per_variant(fov, m), near=_per_variant(near, m),
+            far=_per_variant(far, m),
+            texture=(torch.as_tensor(texture, dtype=torch.float32, device=m.device)
+                     if texture is not None else None),
+            scale=_per_variant(scale, m),
+            aperture=_per_variant(aperture, m) if aperture is not None else None,
+            beams_ndc=beams if analytic else None,
+            beam_sigma=_per_variant(beam_sigma, m) if analytic else None,
+            beam_color=_per_variant(beam_color, m, 3) if analytic else None,
+            beam_hw=(int(beam_hw[0]), int(beam_hw[1])) if analytic else None,
+        )
+
 
 @dataclasses.dataclass
 class Lights(_Replace):
@@ -86,6 +141,18 @@ class Lights(_Replace):
     @property
     def count(self) -> int:
         return len(self.kinds)
+
+    @property
+    def positions(self) -> Tensor:
+        """(B, L, 3) world positions."""
+        return self.to_world[:, :, :3, 3]
+
+    @classmethod
+    def empty(cls, *, batch: int = 1, device="cuda") -> "Lights":
+        none = torch.zeros(batch, 0, device=device)
+        return cls(kinds=(), to_world=torch.zeros(batch, 0, 4, 4, device=device),
+                   intensity=torch.zeros(batch, 0, 3, device=device), cutoff_cos=none,
+                   beam_cos=none, active=none.bool())
 
 
 @dataclasses.dataclass
@@ -122,6 +189,27 @@ class Materials(_Replace):
     has_normal_tex: Optional[Tensor] = None
     flags: Optional[frozenset] = None
 
+    @property
+    def count(self) -> int:
+        return self.base_color.shape[1]
+
+    @classmethod
+    def default(cls, count: int = 1, *, batch: int = 1, device="cuda") -> "Materials":
+        """`count` materials a variant with the JAX factory's values: grey
+        0.8, roughness 0.5, specular 0.5, sheen tint 0.5, clearcoat gloss 1,
+        ior 1.5, the rest 0."""
+        def full(v):
+            return torch.full((batch, count), v, device=device)
+
+        return cls(
+            base_color=torch.full((batch, count, 3), 0.8, device=device),
+            roughness=full(0.5), metallic=full(0.0), specular=full(0.5),
+            spec_tint=full(0.0), clearcoat=full(0.0), clearcoat_gloss=full(1.0),
+            sheen=full(0.0), sheen_tint=full(0.5), anisotropic=full(0.0),
+            spec_trans=full(0.0), flatness=full(0.0), ior=full(1.5), thin=full(0.0),
+            emission=torch.zeros(batch, count, 3, device=device),
+        )
+
 
 @dataclasses.dataclass
 class Geometry(_Replace):
@@ -141,6 +229,15 @@ class Geometry(_Replace):
     uvs: Optional[Tensor] = None  # (V, 2)
     emissive_faces: Optional[Tensor] = None  # (E,) int64
     normals: Optional[Tensor] = None  # (B, V, 3)
+
+    @property
+    def num_faces(self) -> int:
+        return self.faces.shape[0]
+
+    @property
+    def num_meshes(self) -> Tensor:
+        """max(face_mesh) + 1, a 0-d tensor on the table's device."""
+        return self.face_mesh.max() + 1
 
     def triangle_corners(self):
         """(v0, e1, e2), each (B, F, 3), for Möller-Trumbore."""

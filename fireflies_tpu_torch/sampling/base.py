@@ -72,6 +72,16 @@ class Sampler:
                             device=device) * step_size
         return torch.where(span == 0.0, lo, lo + frac)
 
+    @property
+    def shape(self) -> tuple:
+        return self.min_range.shape
+
+    def get_min(self) -> np.ndarray:
+        return self.min_range
+
+    def get_max(self) -> np.ndarray:
+        return self.max_range
+
 
 @dataclasses.dataclass(frozen=True)
 class ConstantSampler(Sampler):

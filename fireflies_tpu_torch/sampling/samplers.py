@@ -91,6 +91,12 @@ class AnimationSampler(Sampler):
                    train_min=int(train_min), train_max=int(train_max),
                    eval_min=int(eval_min), eval_max=int(eval_max), **kw)
 
+    def set_train_interval(self, lo: int, hi: int) -> "AnimationSampler":
+        return self.replace(train_min=int(lo), train_max=int(hi))
+
+    def set_eval_interval(self, lo: int, hi: int) -> "AnimationSampler":
+        return self.replace(eval_min=int(lo), eval_max=int(hi))
+
     def sample_train(self, gen, device) -> Tensor:
         hi = max(self.train_max, self.train_min + 1)
         return torch.randint(self.train_min, hi, (), generator=gen, device=device)
